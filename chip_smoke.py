@@ -8,19 +8,33 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the
    kernel library built from ``src/repro_torch/csrc`` and its build time.
-2. Kernels: each of the four CUDA kernels against its plain PyTorch
-   version on the card, at the shapes the main path gives it (both GCN
-   layers) and on a small ragged case; timed with CUDA events beside the
-   plain version, a library call computing the same function
-   (``torch.sparse.mm``, never used by the port) and the least time the
-   card could take for the layer's real widths (and, beside it, for the
-   block-padded operands the kernel is given).  A small graph's forward
-   pass on the card is held against the reference impl on the CPU.
-3. Main path: the dataset at its published widths through
+2. Kernels: each CUDA kernel against its plain PyTorch version on the
+   card, at the shapes the main path gives it (both GCN layers) and on a
+   small ragged case: the four f32 kernels, their bf16 instantiations
+   (``name@bf16``) and their int8 ``_scaled`` variants.  Each is timed with
+   CUDA events beside the plain version, a library call computing the same
+   function (``torch.sparse.mm``, never used by the port) and the least
+   time the card could take for the layer's real widths at its storage
+   widths (and, beside it, for the block-padded operands the kernel is
+   given).  As a control, the fused bf16/int8 plain version without its
+   bf16 rounding of ``X W + b`` must fail the agreement check.  A small
+   graph's forward pass on the card, at each precision, is held against
+   the same precision on the CPU.
+3. Main path, f32: the dataset at its published widths through
    ``GCNGraph.build`` and a 2-layer ``gcn_forward`` under the four kernel
    configs (dense/sparse grid x unfused/fused), each held against the
    reference impl on the card and timed over a few full-graph requests.
-   The launch counts are reset just before and must all be > 0 after.
+   The launch counts are reset just before; each of the four kernels must
+   have launched on f32 values after, and none on other values.
+4. Main path, bf16 and int8: the same four configs at
+   ``precision="bf16"``, then at ``"int8"``, each held against the
+   reference impl at the same precision and against the f32 reference's
+   logits within the reference's budgets (bf16 0.02, int8 0.05).  The
+   launch counts are reset before each precision and read after it: every
+   kernel of that precision (the four at bf16, the four ``_scaled`` ones at
+   int8) must have launched on values of that precision, and no kernel on
+   values of another.  As a control, the f32 forward in the place of each
+   must fail the agreement check.
 
 Prints one ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -40,33 +54,70 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/csrc/flexvector_spmm.cu"
+_TPU = "src/repro/kernels/flexvector_spmm.py"
 REPLACES = {
-    "spmm_ell_dense_grid": "src/repro/kernels/flexvector_spmm.py:156",
-    "spmm_ell_sparse_grid": "src/repro/kernels/flexvector_spmm.py:271",
-    "spmm_ell_fused_dense_grid": "src/repro/kernels/flexvector_spmm.py:426",
-    "spmm_ell_fused_sparse_grid": "src/repro/kernels/flexvector_spmm.py:551",
+    "spmm_ell_dense_grid": f"{_TPU}:156",
+    "spmm_ell_sparse_grid": f"{_TPU}:271",
+    "spmm_ell_fused_dense_grid": f"{_TPU}:426",
+    "spmm_ell_fused_sparse_grid": f"{_TPU}:551",
+    "spmm_ell_dense_grid_scaled": f"{_TPU}:164",
+    "spmm_ell_sparse_grid_scaled": f"{_TPU}:288",
+    "spmm_ell_fused_dense_grid_scaled": f"{_TPU}:437",
+    "spmm_ell_fused_sparse_grid_scaled": f"{_TPU}:570",
 }
-KERNELS = tuple(REPLACES)
-AGGREGATION = ("spmm_ell_dense_grid", "spmm_ell_sparse_grid")
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# on the CUDA cores (the kernels do f32 FMA, no TF32).
+KERNELS = tuple(REPLACES)   # the eight pallas_call sites
+BASE = KERNELS[:4]
+PRECISIONS = ("f32", "bf16", "int8")
+# Phase 2's entries: a kernel name, "@bf16" for its bf16 instantiation.
+KEYS = BASE + tuple(f"{n}@bf16" for n in BASE) + KERNELS[4:]
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 on
+# the CUDA cores (the f32 kernels do f32 FMA, no TF32) and dense bf16 on
+# the tensor cores, the least time for products of bf16 and int8 inputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# Kernel vs plain version, as a fraction of max|plain|.  Aggregation: the
-# same tau products summed in the same order, only FMA contraction
-# differs.  Fused: the kernel re-associates to (sum_t v X[c]) W +
-# (sum_t v) b, so each output is an F_in-long f32 dot product taken in
-# another order (error ~ sqrt(F_in) * 2^-24 of its magnitude).
+BF16_FLOPS_PER_S = 989e12
+# Agreement of an output with its reference takes two limits: its
+# largest error, as a fraction of max|reference| (REL_TOL,
+# FORWARD_REL_TOL), and the share of its elements off by more than
+# FLIP_REL of max|reference|, which must stay <= FLIP_SHARE (kernels) or
+# FORWARD_FLIP_SHARE (forwards).
+#
+# Kernel vs plain version.  Aggregation: the same tau products summed in
+# the same order, only FMA contraction differs (bf16/int8: the two
+# half-warps' partial sums are added last).  Fused f32: the kernel
+# re-associates to (sum_t v X[c]) W + (sum_t v) b, so each output is an
+# F_in-long f32 dot product taken in another order (error ~ sqrt(F_in) *
+# 2^-24 of its magnitude).  Fused bf16/int8: X W + b is summed in another
+# f32 order before its bf16 rounding, so an element near a rounding
+# boundary can land one bf16 ulp (2^-8 of itself) away.  Such flips are
+# rare, so the largest error may reach 8e-3 while few elements differ; a
+# kernel that skipped the rounding would differ in most of them (the
+# phase 2 control).
 REL_TOL = {
     "spmm_ell_dense_grid": 1e-5,
     "spmm_ell_sparse_grid": 1e-5,
     "spmm_ell_fused_dense_grid": 1e-4,
     "spmm_ell_fused_sparse_grid": 1e-4,
 }
-# Forward vs the reference impl, as a fraction of max|reference|: two
-# layers of the above, plus index_add_'s atomics summing vertex-cut
-# partials in run-dependent order.
-FORWARD_REL_TOL = 1e-4
+for _n in BASE:
+    REL_TOL[f"{_n}@bf16"] = REL_TOL[f"{_n}_scaled"] = (
+        8e-3 if "fused" in _n else 1e-5)
+FLIP_REL = 1e-5
+FLIP_SHARE = 1e-2
+# Forward vs the reference impl: two layers of the above, plus
+# index_add_'s atomics summing vertex-cut partials in run-dependent order.
+# bf16/int8: a rounding flip in a layer's X W + b moves the logits of the
+# rows that aggregate it by far less than the 2e-3 limit.  int8 values
+# times their scale are not exact in f32, so their products summed in
+# another order move layer 1's output by an ulp and flip some of layer
+# 2's roundings: a few per mille of the logits move.  The f32 forward in
+# bf16's or int8's place moves most of them by about 2e-3 or more (the
+# phase 4 control).
+FORWARD_REL_TOL = {"f32": 1e-4, "bf16": 2e-3, "int8": 2e-3}
+FORWARD_FLIP_SHARE = 5e-2
+# Logits vs the f32 reference: the reference's budgets
+# (tests/test_quant.py).
+LOGIT_BUDGET = {"bf16": 0.02, "int8": 0.05}
 CONFIGS = (("cuda", False), ("cuda_sparse", False), ("cuda", True),
            ("cuda_sparse", True))
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device time that hides host enqueue
@@ -112,10 +163,30 @@ def device_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def rel_err(torch, out, ref) -> tuple:
-    err = float((out - ref).abs().max()) if out.numel() else 0.0
-    scale = float(ref.abs().max()) if ref.numel() else 0.0
-    return err, err / max(scale, 1e-30)
+def agreement(torch, out, ref, real=None) -> dict:
+    """``out`` vs ``ref`` over their first ``real = (rows, cols)`` (all
+    of them by default): the largest error ``err``, ``rel`` = ``err`` /
+    max|ref| and ``flip_share``, the share of elements off by more than
+    FLIP_REL of max|ref|."""
+    if real is not None:
+        out, ref = out[:real[0], :real[1]], ref[:real[0], :real[1]]
+    if not out.numel():
+        return {"err": 0.0, "rel": 0.0, "flip_share": 0.0}
+    diff = (out.float() - ref.float()).abs()
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = float(diff.max())
+    return {"err": err, "rel": err / scale,
+            "flip_share": float((diff > FLIP_REL * scale).float().mean())}
+
+
+def agrees(reading: dict, rel_tol: float,
+           flip_share: float = FLIP_SHARE) -> bool:
+    return reading["rel"] <= rel_tol and reading["flip_share"] <= flip_share
+
+
+def describe(reading: dict) -> str:
+    return (f"max_abs_err={reading['err']:.3e} rel={reading['rel']:.3e} "
+            f"flip_share={reading['flip_share']:.2e}")
 
 
 def ell_csr(torch, cols, vals, n_cols: int, k_limit: int):
@@ -129,45 +200,69 @@ def ell_csr(torch, cols, vals, n_cols: int, k_limit: int):
     return coo.coalesce().to_sparse_csr()
 
 
+def split_key(key: str) -> tuple:
+    """``(kernel name, precision)`` of a phase 2 entry."""
+    if key.endswith("@bf16"):
+        return key[:-len("@bf16")], "bf16"
+    return key, "int8" if key.endswith("_scaled") else "f32"
+
+
+def is_aggregation(name: str) -> bool:
+    return "fused" not in name
+
+
 def work(torch, name: str, args, kw, real=None) -> dict:
     """Least bytes and FLOPs the call needs on these inputs.
 
     ``real`` is the unpadded ``(rows, output width)`` of the layer; the
     padding rows and columns the kernel is also given are left out of the
     count (``real=None`` counts the operands as given).  Bytes: each input
-    read once (only the rows of the dense operand or of X that the ELL
-    table references), the output written once.  FLOPs: aggregation 2 per
-    counted slot and column; fused, the cheaper of X W on the referenced
-    rows then aggregation, or aggregation of X then the product.
+    read once at its storage width (only the rows of the dense operand or
+    of X that the ELL table references; the int8 scale vector; the
+    schedule and slot lists), the f32 output written once.  FLOPs:
+    aggregation 2 per counted slot and column; fused f32, the cheaper of
+    X W on the referenced rows then aggregation, or aggregation of X then
+    the product; fused bf16/int8 only the former, since X W + b is rounded
+    before it is aggregated.  f32 FLOPs count at the CUDA-core f32 peak,
+    bf16/int8 ones at the bf16 tensor-core peak.
     """
     if real is None:
         real = (args[0].shape[0],
-                args[2 if name in AGGREGATION else 3].shape[1])
+                args[2 if is_aggregation(name) else 3].shape[1])
     r, f = real
-    cols = args[0][:r]
+    cols, vals = args[0][:r], args[1]
     tau = cols.shape[1]
-    ell_bytes = 8 * r * tau
-    if name in AGGREGATION:
-        k = args[2].shape[0]
+    ell_bytes = (4 + vals.element_size()) * r * tau
+    if kw.get("scales") is not None:
+        ell_bytes += 4 * -(-r // kw["block_rows"])
+    quant = vals.dtype != torch.float32
+    if is_aggregation(name):
+        dense = args[2]
+        k = dense.shape[0]
         keep = (cols >= 0) & (cols < k)
         nnz = int(keep.sum())
         uniq = int(torch.unique(cols[keep]).numel())
         sched = sum(4 * a.numel() for a in args[3:])
-        nbytes = ell_bytes + sched + 4 * uniq * f + 4 * r * f
+        nbytes = (ell_bytes + sched + dense.element_size() * uniq * f
+                  + 4 * r * f)
         flops = 2 * nnz * f
     else:
-        f_in = args[2].shape[1]
+        x, w = args[2], args[3]
+        f_in = x.shape[1]
         keep = (cols >= 0) & (cols < kw["k_real"])
         nnz = int(keep.sum())
         uniq = int(torch.unique(cols[keep]).numel())
         rows = int(keep.any(dim=1).sum())
         sched = sum(4 * a.numel() for a in args[5:])
-        nbytes = (ell_bytes + sched + 4 * uniq * f_in + 4 * f_in * f
-                  + 4 * f + 4 * r * f)
-        flops = min(2 * uniq * f_in * f + 2 * nnz * f,
-                    2 * nnz * f_in + 2 * rows * f_in * f)
+        sched += sum(4 * a.numel() for a in kw.get("slots") or ())
+        nbytes = (ell_bytes + sched + x.element_size() * uniq * f_in
+                  + w.element_size() * f_in * f + 4 * f + 4 * r * f)
+        flops = 2 * uniq * f_in * f + 2 * nnz * f
+        if not quant:
+            flops = min(flops, 2 * nnz * f_in + 2 * rows * f_in * f)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    rate = BF16_FLOPS_PER_S if quant else F32_FLOPS_PER_S
+    t_flops = flops / rate * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
@@ -188,15 +283,40 @@ def device_busy(torch, fn) -> dict:
 
 
 def library_call(torch, name: str, args, kw):
-    """One PyTorch call computing the kernel's function (a yardstick)."""
+    """One PyTorch call computing the kernel's function (a yardstick), and
+    what it is.  Under bf16/int8 it takes a bf16 CSR of the (dequantized)
+    values if cuSPARSE accepts one, else an f32 CSR with the bf16 operand
+    widened inside the call."""
+    from repro_torch.kernels.ref import dequantize_rows
+
     cols, vals = args[0], args[1]
-    if name in AGGREGATION:
-        dense = args[2]
-        a = ell_csr(torch, cols, vals, dense.shape[0], dense.shape[0])
-        return lambda: torch.sparse.mm(a, dense)
-    x, w, b = args[2], args[3], args[4]
-    a = ell_csr(torch, cols, vals, x.shape[0], kw["k_real"])
-    return lambda: torch.sparse.mm(a, torch.addmm(b, x, w))
+    if kw.get("scales") is not None:
+        vals = dequantize_rows(vals, kw["scales"], kw["block_rows"])
+    agg = is_aggregation(name)
+    k = args[2].shape[0]
+    k_limit = k if agg else kw["k_real"]
+    if agg:
+        def operand(dtype):
+            return args[2].to(dtype)
+    else:
+        x, w, b = args[2], args[3], args[4]
+
+        def operand(dtype):
+            return torch.addmm(b.to(dtype), x.to(dtype), w.to(dtype))
+    if vals.dtype == torch.float32 and args[2].dtype == torch.float32:
+        a = ell_csr(torch, cols, vals, k, k_limit)
+        return (lambda: torch.sparse.mm(a, operand(torch.float32)),
+                "torch.sparse.mm(f32 CSR, f32)")
+    a = ell_csr(torch, cols, vals.to(torch.bfloat16), k, k_limit)
+    try:
+        torch.sparse.mm(a, operand(torch.bfloat16))
+        torch.cuda.synchronize()
+        return (lambda: torch.sparse.mm(a, operand(torch.bfloat16)),
+                "torch.sparse.mm(bf16 CSR, bf16)")
+    except RuntimeError:
+        a = ell_csr(torch, cols, vals.to(torch.float32), k, k_limit)
+        return (lambda: torch.sparse.mm(a, operand(torch.float32)),
+                "torch.sparse.mm(f32 CSR of the values, bf16 widened to f32)")
 
 
 # -- phases ------------------------------------------------------------------------
@@ -224,43 +344,53 @@ def phase_device(torch, build) -> dict:
 
 
 def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
-    """Each kernel's (args, kwargs, (rows, width)) for both layers of one
-    forward pass, built by the same functions the dispatch uses; (rows,
-    width) is the unpadded output shape."""
+    """Each phase 2 entry's (args, kwargs, (rows, width)) for both layers of
+    one forward pass at its precision, built by the same functions the
+    dispatch uses; (rows, width) is the unpadded output shape."""
     from repro_torch.exec import quant
-    from repro_torch.exec.dispatch import aggregation_args, execute_layer
+    from repro_torch.exec.dispatch import (aggregation_args, execute_layer,
+                                           prepare_precision)
     from repro_torch.exec.fused import fused_args
 
     operands, perm, _ = graph.on_device(dev)
-    ref_plan = rt.SpmmPlan(impl="reference", block_rows=cfg.block_rows,
-                           block_k=cfg.block_k, block_f=cfg.block_f)
-    x = feats[perm]
-    cases = {name: [] for name in KERNELS}
-    for i in range(len(params)):
-        layer = params[f"layer_{i}"]
-        xw = quant.affine(x, layer, "f32")
-        for impl in ("cuda", "cuda_sparse"):
-            plan = rt.SpmmPlan(impl=impl, block_rows=cfg.block_rows,
-                               block_k=cfg.block_k, block_f=cfg.block_f
-                               ).resolve(schedulable=True)
-            name, args, kw, real = aggregation_args(plan, operands,
-                                                    operands.vals, xw)
-            cases[name].append((args, kw, real))
-            name, args, kw, real = fused_args(plan, operands, x, layer)
-            cases[name].append((args, kw, real))
-        x = execute_layer(ref_plan, operands, x, layer)
-        if i < len(params) - 1:
-            x = torch.relu(x)
+    cases = {key: [] for key in KEYS}
+    for precision in PRECISIONS:
+        blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
+                      block_f=cfg.block_f, precision=precision)
+        ref_plan = rt.SpmmPlan(impl="reference", **blocks)
+        qparams = quant.quantize_params(params, precision, cfg.block_rows)
+        tag = "@bf16" if precision == "bf16" else ""
+        x = feats[perm]
+        for i in range(len(params)):
+            layer = qparams[f"layer_{i}"]
+            xw = quant.affine(x, layer, precision, cfg.block_rows)
+            for impl in ("cuda", "cuda_sparse"):
+                plan = rt.SpmmPlan(impl=impl, **blocks).resolve(
+                    schedulable=True)
+                vals, scales, dense = prepare_precision(plan, operands, xw)
+                name, args, kw, real = aggregation_args(plan, operands, vals,
+                                                        dense, scales)
+                cases[name + tag].append((args, kw, real))
+                name, args, kw, real = fused_args(plan, operands, x, layer,
+                                                  cfg.block_rows)
+                cases[name + tag].append((args, kw, real))
+            x = execute_layer(ref_plan, operands, x, layer,
+                              w_block_rows=cfg.block_rows)
+            if i < len(params) - 1:
+                x = torch.relu(x)
     return cases
 
 
 def ragged_cases(torch, np, dev, seed: int) -> dict:
-    """Small case off the main path's grid: F not a multiple of 128, a row
-    block with no entries, k_real < K, a schedule that omits an occupied
-    tile and a kb_ids list with -1 padding."""
+    """Small case off the main path's grid, for every phase 2 entry: F not
+    a multiple of 128, a row block with no entries, k_real < K, a schedule
+    that omits an occupied tile, a kb_ids list with -1 padding and, for
+    int8, one scale fewer than row blocks (the last takes 1.0); bf16/int8
+    fused calls get the table's slot lists."""
     from repro_torch.core.dataflow import plan_fused_k_schedule, plan_kernel_grid
     from repro_torch.core.sparse_formats import TiledELL
-    from repro_torch.kernels.flexvector_spmm import schedule_tile_bitmaps
+    from repro_torch.kernels.flexvector_spmm import (column_slots,
+                                                     schedule_tile_bitmaps)
 
     rng = np.random.default_rng(seed)
     r, tau, k, f, f_in, br, bk, bf = 64, 5, 48, 40, 37, 16, 16, 8
@@ -283,72 +413,106 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
-    c, v = t(cols, torch.int32), t(vals)
+    c = t(cols, torch.int32)
     dense = t(rng.standard_normal((k, f)))
     x = t(rng.standard_normal((k, f_in)))
     w = t(rng.standard_normal((f_in, f)))
     b = t(rng.standard_normal((1, f)))
+    q = t(np.clip(np.rint(vals * 40), -127, 127), torch.int8)
+    scales = t(rng.uniform(0.01, 0.1, r // br - 1))
+    bm, kb = t(bitmaps, torch.int32), t(kb_f, torch.int32)
+    slots = tuple(t(a, torch.int32) for a in column_slots(cols, k))
     kw = dict(block_rows=br, block_k=bk, block_f=bf)
-    fkw = dict(kw, k_real=k - 5)
-    return {
-        "spmm_ell_dense_grid": ((c, v, dense), kw),
-        "spmm_ell_sparse_grid": ((c, v, dense, t(bitmaps, torch.int32)), kw),
-        "spmm_ell_fused_dense_grid": ((c, v, x, w, b), fkw),
-        "spmm_ell_fused_sparse_grid": ((c, v, x, w, b,
-                                        t(kb_f, torch.int32)), fkw),
-    }
+    out = {}
+    for precision in PRECISIONS:
+        v, extra = t(vals), {}
+        d, xx, ww = dense, x, w
+        if precision != "f32":
+            d, xx, ww = (a.to(torch.bfloat16) for a in (dense, x, w))
+            v = v.to(torch.bfloat16)
+            extra.update(cast_xw=torch.bfloat16, slots=slots)
+        if precision == "int8":
+            v = q
+        akw = dict(kw, scales=scales) if precision == "int8" else kw
+        fkw = dict(akw, k_real=k - 5, **extra)
+        tag = {"f32": "", "bf16": "@bf16", "int8": "_scaled"}[precision]
+        out.update({
+            f"spmm_ell_dense_grid{tag}": ((c, v, d), akw),
+            f"spmm_ell_sparse_grid{tag}": ((c, v, d, bm), akw),
+            f"spmm_ell_fused_dense_grid{tag}": ((c, v, xx, ww, b), fkw),
+            f"spmm_ell_fused_sparse_grid{tag}": ((c, v, xx, ww, b, kb), fkw),
+        })
+    return out
 
 
 def phase_kernels(torch, np, fv, cases, dev) -> dict:
     results = {}
     ragged = ragged_cases(torch, np, dev, SEED)
-    for name in KERNELS:
-        kernel, plain = getattr(fv, name), fv.PLAIN[name]
-        args, kw = ragged[name]
-        err, rel = rel_err(torch, kernel(*args, **kw), plain(*args, **kw))
+    for key in KEYS:
+        name, _ = split_key(key)
+        kernel, plain = fv.KERNELS[name], fv.PLAIN[name]
+        args, kw = ragged[key]
+        got = agreement(torch, kernel(*args, **kw), plain(*args, **kw))
         torch.cuda.synchronize()
-        print(f"phase 2: {name} ragged max_abs_err={err:.3e} rel={rel:.3e} "
-              f"(tol {REL_TOL[name]:.0e})")
-        check(rel <= REL_TOL[name], f"{name} disagrees with its plain version "
-              f"on the ragged case: rel err {rel:.3e}")
-        entry = {"max_abs_err": err, "max_rel_err": rel, "per_layer": []}
-        for layer, (args, kw, real) in enumerate(cases[name]):
+        print(f"phase 2: {key} ragged {describe(got)} (tol "
+              f"{REL_TOL[key]:.0e}, flip share {FLIP_SHARE:.0e})")
+        check(agrees(got, REL_TOL[key]), f"{key} disagrees with its plain "
+              f"version on the ragged case: {describe(got)}")
+        entry = {"max_abs_err": got["err"], "max_rel_err": got["rel"],
+                 "max_flip_share": got["flip_share"], "per_layer": []}
+        for layer, (args, kw, real) in enumerate(cases[key]):
             out, ref = kernel(*args, **kw), plain(*args, **kw)
-            err, rel = rel_err(torch, out, ref)
+            got = agreement(torch, out, ref, real)
             torch.cuda.synchronize()
-            check(bool(torch.isfinite(out).all()), f"{name} non-finite output")
-            check(rel <= REL_TOL[name], f"{name} layer {layer} disagrees with "
-                  f"its plain version: rel err {rel:.3e}")
+            check(bool(torch.isfinite(out).all()), f"{key} non-finite output")
+            check(agrees(got, REL_TOL[key]), f"{key} layer {layer} disagrees "
+                  f"with its plain version: {describe(got)}")
+            if kw.get("cast_xw") is not None:
+                # control: the plain version without the bf16 rounding of
+                # X W + b, what a kernel that skipped it would give
+                ctl = agreement(torch, plain(*args, **dict(kw, cast_xw=None)),
+                                ref, real)
+                print(f"phase 2: {key} layer {layer} control without the "
+                      f"cast_xw rounding: {describe(ctl)}")
+                check(not agrees(ctl, REL_TOL[key]), f"{key}: the agreement "
+                      "check does not tell the missing cast_xw rounding "
+                      f"apart: {describe(ctl)}")
             cell = work(torch, name, args, kw, real)
             padded = work(torch, name, args, kw)
+            lib, lib_what = library_call(torch, name, args, kw)
             cell.update(
                 shape=[list(a.shape) for a in args],
+                dtypes=[str(a.dtype).replace("torch.", "") for a in args],
                 real_shape=list(real),
                 padded_bound_ms=padded["bound_ms"],
                 padding_byte_share=1.0 - cell["bytes"] / padded["bytes"],
-                max_abs_err=err,
+                max_abs_err=got["err"],
+                flip_share=got["flip_share"],
                 ms=device_ms(torch, lambda: kernel(*args, **kw), REPS),
                 plain_ms=device_ms(torch, lambda: plain(*args, **kw), REPS),
-                library_ms=device_ms(torch, library_call(torch, name, args, kw),
-                                     REPS),
+                library_ms=device_ms(torch, lib, REPS),
+                library_call=lib_what,
             )
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            entry["max_rel_err"] = max(entry["max_rel_err"], rel)
+            entry["max_abs_err"] = max(entry["max_abs_err"], got["err"])
+            entry["max_rel_err"] = max(entry["max_rel_err"], got["rel"])
+            entry["max_flip_share"] = max(entry["max_flip_share"],
+                                          got["flip_share"])
             entry["per_layer"].append(cell)
-            print(f"phase 2: {name} layer {layer} {cell['shape']} real "
-                  f"{cell['real_shape']} max_abs_err={err:.3e} rel={rel:.3e} "
+            print(f"phase 2: {key} layer {layer} {cell['shape']} "
+                  f"{cell['dtypes'][1]} real {cell['real_shape']} "
+                  f"{describe(got)} "
                   f"ms={cell['ms']:.4f} plain_ms={cell['plain_ms']:.4f} "
-                  f"library_ms={cell['library_ms']:.4f} "
+                  f"library_ms={cell['library_ms']:.4f} ({lib_what}) "
                   f"bound_ms={cell['bound_ms']:.4f} ({cell['bound_by']}) "
                   f"padded_bound_ms={cell['padded_bound_ms']:.4f} "
                   f"padding_byte_share={cell['padding_byte_share']:.3f}")
-        results[name] = entry
+        results[key] = entry
     return results
 
 
 def small_forward_check(torch, np, rt, dev) -> None:
-    """A small graph's forward on the card against the reference impl on
-    the CPU, under the four kernel configs."""
+    """A small graph's forward on the card against the same precision on
+    the CPU (plain versions), under the four kernel configs."""
     from repro_torch.core.sparse_formats import random_power_law_csr
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.gcn import GCNConfig, GCNGraph, gcn_forward
@@ -363,83 +527,126 @@ def small_forward_check(torch, np, rt, dev) -> None:
                 block_k=16, block_f=16)
     cfg = GCNConfig(**base)
     graph = GCNGraph.build(adj, cfg)
-    ref = gcn_forward(params_from_numpy(raw, "cpu"), graph, feats, cfg,
-                      device="cpu")
     params = params_from_numpy(raw, dev)
-    for impl, fused in CONFIGS:
-        plan = rt.SpmmPlan(impl=impl, block_rows=16, block_k=16, block_f=16,
-                           fused=fused)
-        out = gcn_forward(params, graph, feats, cfg, plan=plan, device=dev)
-        err, rel = rel_err(torch, out.cpu(), ref)
-        print(f"phase 2: small forward {impl} fused={fused} vs CPU reference "
-              f"rel={rel:.3e}")
-        check(rel <= FORWARD_REL_TOL, f"small forward {impl} fused={fused} "
-              f"rel err {rel:.3e}")
+    for precision in PRECISIONS:
+        for impl, fused in CONFIGS:
+            plan = rt.SpmmPlan(impl=impl, block_rows=16, block_k=16,
+                               block_f=16, fused=fused)
+            ref = gcn_forward(params_from_numpy(raw, "cpu"), graph, feats, cfg,
+                              plan=plan, precision=precision, device="cpu")
+            out = gcn_forward(params, graph, feats, cfg, plan=plan,
+                              precision=precision, device=dev)
+            got = agreement(torch, out.cpu(), ref)
+            print(f"phase 2: small forward {precision} {impl} fused={fused} "
+                  f"vs CPU {describe(got)}")
+            check(agrees(got, FORWARD_REL_TOL[precision], FORWARD_FLIP_SHARE),
+                  f"small forward {precision} {impl} fused={fused}: "
+                  f"{describe(got)}")
 
 
-def phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev) -> dict:
+def timed_forwards(torch, fn) -> tuple:
+    """Median host ms of REQUESTS calls of ``fn()`` (each ending in a
+    synchronize) after 3 warm ones, and the last output."""
+    times = []
+    for i in range(3 + REQUESTS):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
+                    precisions, phase: int) -> dict:
+    """The four kernel configs at each of ``precisions``, with the launch
+    counts reset before each precision and read after it."""
+    from repro_torch.exec.quant import logit_error
     from repro_torch.models.gcn import gcn_forward
 
-    ref_plan = rt.SpmmPlan(impl="reference", block_rows=cfg.block_rows,
-                           block_k=cfg.block_k, block_f=cfg.block_f)
-    ref = gcn_forward(params, graph, feats, cfg, plan=ref_plan, device=dev)
+    blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
+                  block_f=cfg.block_f)
+    ref_plan = rt.SpmmPlan(impl="reference", **blocks)
+
+    def forward(plan, precision):
+        return lambda: gcn_forward(params, graph, feats, cfg, plan=plan,
+                                   precision=precision, device=dev)
+
+    f32_ref = forward(ref_plan, "f32")()
+    refs = {p: forward(ref_plan, p)() for p in precisions}
     torch.cuda.synchronize()
-    timings, busy = {}, {}
-    fv.reset_launches()
-    for impl, fused in CONFIGS:
-        plan = rt.SpmmPlan(impl=impl, block_rows=cfg.block_rows,
-                           block_k=cfg.block_k, block_f=cfg.block_f,
-                           fused=fused)
-        times = []
-        for i in range(3 + REQUESTS):
-            t0 = time.perf_counter()
-            out = gcn_forward(params, graph, feats, cfg, plan=plan, device=dev)
-            torch.cuda.synchronize()
-            if i >= 3:
-                times.append((time.perf_counter() - t0) * 1e3)
-        check(tuple(out.shape) == (graph.n_nodes, cfg.out_dim),
-              f"{impl} fused={fused}: output shape {tuple(out.shape)}")
-        check(bool(torch.isfinite(out).all()), f"{impl} fused={fused}: "
-              "non-finite logits")
-        err, rel = rel_err(torch, out, ref)
-        check(rel <= FORWARD_REL_TOL, f"{impl} fused={fused} disagrees with "
-              f"the reference impl: rel err {rel:.3e}")
-        key = f"{impl}{'+fused' if fused else ''}"
-        timings[key] = statistics.median(times)
-        print(f"phase 3: {key} forward median {timings[key]:.3f} ms over "
-              f"{REQUESTS} requests, vs reference max_abs_err={err:.3e} "
-              f"rel={rel:.3e}")
-        busy[key] = device_busy(torch, lambda: gcn_forward(
-            params, graph, feats, cfg, plan=plan, device=dev))
-    launches = dict(fv.LAUNCHES)
-    print(f"phase 3: launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    ref_times = []
-    for _ in range(3 + REQUESTS):
-        t0 = time.perf_counter()
-        gcn_forward(params, graph, feats, cfg, plan=ref_plan, device=dev)
-        torch.cuda.synchronize()
-        ref_times.append((time.perf_counter() - t0) * 1e3)
-    timings["reference"] = statistics.median(ref_times[3:])
-    print(f"phase 3: reference forward median {timings['reference']:.3f} ms")
-    busy["reference"] = device_busy(torch, lambda: gcn_forward(
-        params, graph, feats, cfg, plan=ref_plan, device=dev))
+    timings, busy, logit, launches, control = {}, {}, {}, {}, {}
+    for precision in precisions:
+        tol = FORWARD_REL_TOL[precision]
+        if precision != "f32":
+            # control: the f32 forward in the place of this precision's
+            ctl = agreement(torch, f32_ref, refs[precision])
+            control[precision] = ctl
+            print(f"phase {phase}: control, the f32 forward vs the reference "
+                  f"at {precision}: {describe(ctl)}")
+            check(not agrees(ctl, tol, FORWARD_FLIP_SHARE), f"the {precision} "
+                  "agreement check does not tell an f32 forward apart: "
+                  f"{describe(ctl)}")
+        fv.reset_launches()
+        for impl, fused in CONFIGS:
+            plan = rt.SpmmPlan(impl=impl, fused=fused, **blocks)
+            key = (f"{impl}{'+fused' if fused else ''}"
+                   + ("" if precision == "f32" else f"@{precision}"))
+            timings[key], out = timed_forwards(torch, forward(plan, precision))
+            check(tuple(out.shape) == (graph.n_nodes, cfg.out_dim),
+                  f"{key}: output shape {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()), f"{key}: non-finite logits")
+            got = agreement(torch, out, refs[precision])
+            check(agrees(got, tol, FORWARD_FLIP_SHARE), f"{key} disagrees "
+                  f"with the reference impl at {precision}: {describe(got)}")
+            line = (f"phase {phase}: {key} forward median {timings[key]:.3f} "
+                    f"ms over {REQUESTS} requests, vs reference at "
+                    f"{precision} {describe(got)}")
+            if precision != "f32":
+                logit[key] = logit_error(f32_ref, out)
+                check(logit[key] <= LOGIT_BUDGET[precision], f"{key}: logit "
+                      f"error vs f32 {logit[key]:.3e} over the budget "
+                      f"{LOGIT_BUDGET[precision]}")
+                line += (f", logit error vs f32 {logit[key]:.3e} (budget "
+                         f"{LOGIT_BUDGET[precision]})")
+            print(line)
+            busy[key] = device_busy(torch, forward(plan, precision))
+        # every kernel of this precision launched on values of it (PubMed's
+        # blocks align the int8 scales with the kernels' row blocks, so no
+        # int8 layer falls back to bf16 values), and none on other values
+        counts = dict(fv.PRECISION_LAUNCHES)
+        print(f"phase {phase}: launches at {precision} {json.dumps(counts)}")
+        names = KERNELS[4:] if precision == "int8" else BASE
+        for name in names:
+            check(counts[f"{name}@{precision}"] > 0, f"kernel {name} was not "
+                  f"launched on {precision} values on the main path")
+        other = {k: n for k, n in counts.items()
+                 if n and not k.endswith(f"@{precision}")}
+        check(not other, f"the {precision} forwards launched kernels on "
+              f"values of another precision: {other}")
+        launches[precision] = {name: counts[f"{name}@{precision}"]
+                               for name in names}
+    if "f32" in precisions:
+        timings["reference"], _ = timed_forwards(torch, forward(ref_plan, "f32"))
+        print(f"phase {phase}: reference forward median "
+              f"{timings['reference']:.3f} ms")
+        busy["reference"] = device_busy(torch, forward(ref_plan, "f32"))
     idle = {}
     for key, kernels in busy.items():
         total = sum(kernels.values())
         if total == 0.0:
-            print(f"phase 3: {key} device time not measured (no device "
+            print(f"phase {phase}: {key} device time not measured (no device "
                   "events in the profile)")
             continue
         idle[key] = max(0.0, 1.0 - total / timings[key])
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
-        print(f"phase 3: {key} device busy {total:.3f} ms of "
+        print(f"phase {phase}: {key} device busy {total:.3f} ms of "
               f"{timings[key]:.3f} ms (idle share {idle[key]:.2f}); top: "
               + "; ".join(f"{name[:60]} {ms:.3f}" for name, ms in top))
     return {"launches": launches, "forward_ms": timings,
             "device_busy_ms": {k: sum(v.values()) for k, v in busy.items()},
-            "device_idle_share": idle}
+            "device_idle_share": idle, "logit_error_vs_f32": logit,
+            "control_vs_reference": control}
 
 
 def run(args) -> int:
@@ -491,23 +698,22 @@ def run(args) -> int:
     cases = main_path_cases(torch, rt, graph, cfg, params, feats, dev)
     kernels = phase_kernels(torch, np, fv, cases, dev)
     small_forward_check(torch, np, rt, dev)
-    main = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev)
+    main = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
+                           ("f32",), 3)
+    quant = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
+                            ("bf16", "int8"), 4)
 
-    lines = []
-    for name in KERNELS:
-        k = kernels[name]
+    def summary(key):
+        """Per forward pass: the sum over its two layer launches."""
+        k = kernels[key]
         cells = k["per_layer"]
         top = max(cells, key=lambda c: c["bound_ms"])
-        lines.append({
-            "name": name,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": main["launches"][name],
+        return {
             "max_abs_err": k["max_abs_err"],
             "max_rel_err": k["max_rel_err"],
-            "rel_tol": REL_TOL[name],
-            # per forward pass: the sum over its two layer launches
+            "max_flip_share": k["max_flip_share"],
+            "rel_tol": REL_TOL[key],
+            "flip_share_limit": FLIP_SHARE,
             "ms": sum(c["ms"] for c in cells),
             "us": 1e3 * sum(c["ms"] for c in cells),
             "plain_ms": sum(c["plain_ms"] for c in cells),
@@ -515,12 +721,29 @@ def run(args) -> int:
             "bound_by": top["bound_by"],
             "padded_bound_ms": sum(c["padded_bound_ms"] for c in cells),
             "library_ms": sum(c["library_ms"] for c in cells),
+            "library_call": cells[0]["library_call"],
             "per_layer": cells,
-        })
-    print(json.dumps({"kernels": lines, "dataset": args.dataset,
-                      "forward_ms": main["forward_ms"],
-                      "device_busy_ms": main["device_busy_ms"],
-                      "device_idle_share": main["device_idle_share"]}))
+        }
+
+    lines = []
+    for name in KERNELS:
+        line = {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name]}
+        if name in BASE:   # f32, with its bf16 instantiation beside it
+            line["launches"] = main["launches"]["f32"][name]
+            line.update(summary(name))
+            line["bf16"] = dict(summary(f"{name}@bf16"),
+                                launches=quant["launches"]["bf16"][name])
+        else:
+            line["launches"] = quant["launches"]["int8"][name]
+            line.update(summary(name))
+        lines.append(line)
+    merged = {key: {**main[key], **quant[key]}
+              for key in ("forward_ms", "device_busy_ms", "device_idle_share")}
+    print(json.dumps({"kernels": lines, "dataset": args.dataset, **merged,
+                      "logit_error_vs_f32": quant["logit_error_vs_f32"],
+                      "f32_control_vs_reference":
+                          quant["control_vs_reference"]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -4,7 +4,7 @@
 * ``operands`` — :class:`SpmmOperands`, ELL tensors + host container;
 * ``dispatch`` — :func:`execute` / :func:`execute_layer`;
 * ``fused``    — :func:`execute_fused`, one launch per GCN layer;
-* ``quant``    — the f32 storage-precision policy.
+* ``quant``    — the storage-precision policy (f32 / bf16 / int8).
 """
 
 from repro_torch.exec.plan import IMPL_NAMES, SpmmPlan, plan_for_config

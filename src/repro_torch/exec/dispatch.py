@@ -10,7 +10,7 @@ aggregation as two steps.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,77 +44,100 @@ def _tile_bitmaps(plan: SpmmPlan, operands: SpmmOperands, f: int):
 
 def aggregation_args(
     plan: SpmmPlan, operands: SpmmOperands, vals: torch.Tensor,
-    dense: torch.Tensor,
+    dense: torch.Tensor, scales: Optional[torch.Tensor] = None,
 ) -> Tuple[str, tuple, dict, Tuple[int, int]]:
     """The aggregation kernel a resolved kernel plan launches, and its
-    arguments: ``(name, args, kwargs, (r, f))``, where ``(r, f)`` is the
-    unpadded output shape to cut the padded result back to."""
+    arguments: ``(name, args, kwargs, (r, f))``, where ``name`` is the
+    :data:`~repro_torch.kernels.flexvector_spmm.KERNELS` entry (``*_scaled``
+    for int8 values) and ``(r, f)`` the unpadded output shape to cut the
+    padded result back to."""
     cols_p, vals_p, dense_p, (r, f) = fv.pad_operands(
         operands.cols, vals, dense, plan.block_rows, plan.block_k, plan.block_f
     )
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
               block_f=plan.block_f)
+    suffix = ""
+    if scales is not None:
+        kw["scales"], suffix = scales, "_scaled"
     if plan.effective_impl == "cuda_sparse":
         bitmaps = _tile_bitmaps(plan, operands, f)
-        return ("spmm_ell_sparse_grid", (cols_p, vals_p, dense_p, bitmaps),
-                kw, (r, f))
-    return "spmm_ell_dense_grid", (cols_p, vals_p, dense_p), kw, (r, f)
+        return ("spmm_ell_sparse_grid" + suffix,
+                (cols_p, vals_p, dense_p, bitmaps), kw, (r, f))
+    return ("spmm_ell_dense_grid" + suffix, (cols_p, vals_p, dense_p), kw,
+            (r, f))
 
 
 def sub_row_products(
     plan: SpmmPlan, operands: SpmmOperands, vals: torch.Tensor,
-    dense: torch.Tensor,
+    dense: torch.Tensor, scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-sub-row products ``(R, F)`` with the plan's effective impl.
 
     Each bounded (sub-)row times the dense operand, *before* the
-    partial-sum fold.  The plan must already be resolved.
+    partial-sum fold.  The plan must already be resolved.  ``scales``
+    carries the per-row-block scales of int8 ``vals``; the reference impl
+    dequantizes (or widens bf16 values) and gathers in f32.
     """
     impl = plan.effective_impl
     if impl is None:
         raise ValueError("resolve() the plan before dispatch")
     if impl == "reference":
+        if scales is not None:
+            vals = quant.dequantize_values(vals, scales, plan.block_rows)
+        elif plan.precision != "f32":
+            vals = vals.to(torch.float32)
         return spmm_ell_ref(operands.cols, vals, dense)
-    name, args, kw, (r, f) = aggregation_args(plan, operands, vals, dense)
-    return getattr(fv, name)(*args, **kw)[:r, :f]
+    name, args, kw, (r, f) = aggregation_args(plan, operands, vals, dense,
+                                              scales)
+    return fv.KERNELS[name](*args, **kw)[:r, :f]
 
 
 def prepare_precision(
     plan: SpmmPlan, operands: SpmmOperands, dense: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(vals, dense)`` in their storage dtype: f32, the only one ported
-    (``SpmmPlan`` refuses any other)."""
-    return operands.vals.to(torch.float32), dense
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """``(vals, scales, dense)`` in their storage dtypes for the plan's
+    precision: values as :meth:`SpmmOperands.values_for` gives them
+    (``scales`` per ``plan.block_rows`` block for int8, else ``None``) and
+    the dense operand cast to bf16 under bf16/int8."""
+    vals, scales = operands.values_for(plan.precision, plan.block_rows)
+    return vals, scales, quant.cast_dense(dense, plan.precision)
 
 
 def record_spmm_dram(
     plan: SpmmPlan, r: int, tau: int, k: int, f: int, n_out_rows: int
 ) -> None:
     """Ledger the modeled DRAM bytes one dispatch moves at this precision:
-    the ELL table (int32 cols + values + row_map), one pass over the dense
-    operand, and the sub-row + folded activation writeback."""
+    the ELL table (int32 cols + stored-width values + row_map + the int8
+    scale vector), one pass over the dense operand, and the sub-row +
+    folded activation writeback at the activation width."""
     vb = quant.bytes_per_value(plan.precision)
     ab = quant.activation_bytes(plan.precision)
     sparse = r * tau * (4 + vb) + r * 4
+    if plan.precision == "int8":
+        sparse += -(-r // plan.block_rows) * 4
     LEDGER.record(
         "spmm_dram", float(sparse + k * f * ab + (r + n_out_rows) * f * ab)
     )
 
 
 def execute_layer(
-    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict
+    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict,
+    *, w_block_rows: int = quant.QUANT_BLOCK_ROWS,
 ) -> torch.Tensor:
     """One full GCN layer — combination ``x @ w + b`` then aggregation —
     under the plan's fusion decision.
 
     The reference impl always runs unfused (a gather has no launch to
     fuse).  The unfused combination's DRAM traffic is ledgered so fused
-    and unfused byte totals compare honestly.
+    and unfused byte totals compare honestly.  ``layer`` holds ``"w"``/
+    ``"b"`` and, for int8 weights, ``"w_scale"`` with ``w_block_rows``
+    granularity (``quant.quantize_params``).
     """
     plan = plan.resolve(schedulable=operands.schedulable)
     if plan.fused and plan.effective_impl != "reference":
-        return execute_fused(plan, operands, x, layer)
-    xw = quant.affine(x, layer, plan.precision)
+        return execute_fused(plan, operands, x, layer,
+                             w_block_rows=w_block_rows)
+    xw = quant.affine(x, layer, plan.precision, w_block_rows)
     record_combination_dram(plan, x.shape[0], x.shape[1], int(xw.shape[1]))
     return execute(plan, operands, xw)
 
@@ -124,9 +147,9 @@ def execute(
 ) -> torch.Tensor:
     """Run one planned SpMM: ``A @ dense`` for the bounded-row sparse ``A``."""
     plan = plan.resolve(schedulable=operands.schedulable)
-    vals, dense = prepare_precision(plan, operands, dense)
+    vals, scales, dense = prepare_precision(plan, operands, dense)
     r, tau = operands.cols.shape
     record_spmm_dram(plan, r, tau, dense.shape[0], dense.shape[1],
                      operands.n_out_rows)
-    sub = sub_row_products(plan, operands, vals, dense)
+    sub = sub_row_products(plan, operands, vals, dense, scales)
     return segment_accumulate(sub, operands.row_map, operands.n_out_rows)

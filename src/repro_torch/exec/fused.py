@@ -8,6 +8,12 @@ ever reaching device memory (``kernels.flexvector_spmm.spmm_ell_fused_*``).
 The ledger records an explicit 0-byte writeback so fused and unfused runs
 stay count-comparable; its formulas are the reference's.
 
+Under bf16/int8 the operands arrive as the unfused path would store them:
+values from :meth:`SpmmOperands.values_for`, ``x`` and ``w`` in bf16
+(int8 weights dequantized first), ``b`` in f32, and ``X W + b`` rounded to
+bf16 inside the kernel (``cast_xw``) where the unfused path rounds it
+between its two launches (``quant.cast_dense``).
+
 Single device only: the sharded fused path waits for the multi-GPU
 slice.
 """
@@ -47,14 +53,16 @@ def record_fused_dram(
     occ_frac: float,
 ) -> None:
     """Ledger the modeled DRAM bytes one fused layer dispatch moves: the
-    ELL table once, the layer input ``X`` once per f-tile over the
-    occupied k-tiles, the weights once, and only the aggregated output —
-    the intermediate activation's write + read-back never happens
-    (recorded as a 0-byte writeback, the saving under
-    ``fused_writeback_saved``)."""
+    ELL table once (with the int8 scale vector), the layer input ``X``
+    once per f-tile over the occupied k-tiles, the weights once, and only
+    the aggregated output — the intermediate activation's write +
+    read-back never happens (recorded as a 0-byte writeback, the saving
+    under ``fused_writeback_saved``)."""
     vb = quant.bytes_per_value(plan.precision)
     ab = quant.activation_bytes(plan.precision)
     sparse = r * tau * (4 + vb) + r * 4
+    if plan.precision == "int8":
+        sparse += -(-r // plan.block_rows) * 4
     x_read = n_fb * occ_frac * k * f_in * ab
     w_read = f_in * f_out * vb
     out = (r + n_out_rows) * f_out * ab
@@ -91,16 +99,44 @@ def _occupied_frac(plan: SpmmPlan, operands: SpmmOperands) -> float:
 # -- execution --------------------------------------------------------------
 
 
+def _prepare_fused_weights(plan: SpmmPlan, layer: dict, w_block_rows: int):
+    """``(w, b_2d, x_cast, xw_cast)`` in the dtypes ``quant.affine`` and
+    ``quant.cast_dense`` would produce between the two unfused launches."""
+    w, b = layer["w"], layer["b"]
+    if plan.precision == "f32":
+        return w, b.reshape(1, -1), None, None
+    if "w_scale" in layer:
+        w = quant.dequantize_values(w, layer["w_scale"], w_block_rows)
+    return (w.to(torch.bfloat16), b.to(torch.float32).reshape(1, -1),
+            torch.bfloat16, torch.bfloat16)
+
+
+def _column_slots(operands: SpmmOperands, k: int):
+    """:func:`fv.column_slots` of the operand for a ``k``-row ``X``, on its
+    device, built once per operand and ``k``."""
+    def build():
+        cols = operands.ell.cols if operands.ell is not None else operands.cols
+        return tuple(torch.as_tensor(a, device=operands.device)
+                     for a in fv.column_slots(cols, k))
+
+    return operands.memo(("column_slots", k), build)
+
+
 def fused_args(
-    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict
+    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict,
+    w_block_rows: int = quant.QUANT_BLOCK_ROWS,
 ) -> Tuple[str, tuple, dict, Tuple[int, int]]:
     """The fused kernel a resolved kernel plan launches, and its arguments:
     ``(name, args, kwargs, (r, f_out))`` with operands padded to block
-    multiples and ``(r, f_out)`` the unpadded output shape."""
-    cols, vals = operands.cols, operands.vals.to(torch.float32)
+    multiples, ``name`` the :data:`fv.KERNELS` entry (``*_scaled`` for
+    int8 values) and ``(r, f_out)`` the unpadded output shape."""
+    cols = operands.cols
+    vals, scales = operands.values_for(plan.precision, plan.block_rows)
+    w, b, x_cast, xw_cast = _prepare_fused_weights(plan, layer, w_block_rows)
+    if x_cast is not None:
+        x = x.to(x_cast)
     r = cols.shape[0]
     k = x.shape[0]
-    w, b = layer["w"], layer["b"].reshape(1, -1)
     f_out = w.shape[1]
     r_pad = _round_up(r, plan.block_rows)
     k_pad = _round_up(k, plan.block_k)
@@ -116,6 +152,12 @@ def fused_args(
     args = tuple(t.contiguous() for t in (cols, vals, x, w, b))
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
               block_f=plan.block_f, k_real=k)
+    suffix = ""
+    if scales is not None:
+        kw["scales"], suffix = scales, "_scaled"
+    if xw_cast is not None:
+        kw["cast_xw"] = xw_cast
+        kw["slots"] = _column_slots(operands, k_pad)
     if plan.effective_impl == "cuda_sparse":
         kb_ids = operands.memo(
             ("fused_k_schedule", plan.block_rows, plan.block_k),
@@ -124,17 +166,20 @@ def fused_args(
                                       plan.block_k),
                 dtype=torch.int32, device=operands.device),
         )
-        return "spmm_ell_fused_sparse_grid", args + (kb_ids,), kw, (r, f_out)
-    return "spmm_ell_fused_dense_grid", args, kw, (r, f_out)
+        return ("spmm_ell_fused_sparse_grid" + suffix, args + (kb_ids,), kw,
+                (r, f_out))
+    return "spmm_ell_fused_dense_grid" + suffix, args, kw, (r, f_out)
 
 
 def execute_fused(
-    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict
+    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict,
+    *, w_block_rows: int = quant.QUANT_BLOCK_ROWS,
 ) -> torch.Tensor:
     """One fused GCN layer: ``A @ (X @ W + b)`` in a single launch.
 
     The plan must carry a kernel impl; ``dispatch.execute_layer`` routes
-    the reference impl through the unfused path.
+    the reference impl through the unfused path.  ``layer`` may hold int8
+    ``"w"`` + ``"w_scale"`` of ``w_block_rows`` granularity.
     """
     plan = plan.resolve(schedulable=operands.schedulable)
     if plan.effective_impl == "reference":
@@ -142,13 +187,14 @@ def execute_fused(
             "the reference impl has no kernel launch to fuse; dispatch "
             "through exec.dispatch.execute_layer, which runs it unfused"
         )
-    name, args, kw, (r, f_out) = fused_args(plan, operands, x, layer)
+    name, args, kw, (r, f_out) = fused_args(plan, operands, x, layer,
+                                            w_block_rows)
     k, f_in = x.shape
     record_fused_dram(
         plan, r, operands.cols.shape[1], k, f_in, f_out, operands.n_out_rows,
         n_fb=args[3].shape[1] // plan.block_f,
         occ_frac=_occupied_frac(plan, operands),
     )
-    sub = getattr(fv, name)(*args, **kw)
+    sub = fv.KERNELS[name](*args, **kw)
     return segment_accumulate(sub[:r, :f_out], operands.row_map,
                               operands.n_out_rows)

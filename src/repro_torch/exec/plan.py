@@ -1,4 +1,4 @@
-"""SpMM execution plans (single device, f32).
+"""SpMM execution plans (single device).
 
 An :class:`SpmmPlan` captures every launch decision once — impl, block
 sizes, fusion — so the GCN forward and the entry points dispatch through
@@ -41,7 +41,7 @@ class SpmmPlan:
     block_rows: int = 128
     block_k: int = 128
     block_f: int = 128
-    precision: str = "f32"            # storage precision (f32 only here)
+    precision: str = "f32"            # storage precision (exec.quant)
     fused: bool = False               # fuse combination + aggregation per layer
     effective_impl: Optional[str] = None
     degraded_reason: Optional[str] = None

@@ -1,8 +1,10 @@
-"""The four FlexVector SpMM kernels: wrappers, plain versions, launch counts.
+"""The FlexVector SpMM kernels: wrappers, plain versions, launch counts.
 
 Each public kernel function keeps the contract of its TPU counterpart in
 ``repro.kernels.flexvector_spmm`` (same arguments, operands padded to
-block multiples, ``PAD_COL = -1`` slots dropping out):
+block multiples, ``PAD_COL = -1`` slots dropping out, ``scales=`` for
+int8 values dequantized on load, ``cast_xw`` for the fused layer's bf16
+rounding of ``X W + b``):
 
 * :func:`spmm_ell_dense_grid`  — aggregation over every k-tile;
 * :func:`spmm_ell_sparse_grid` — aggregation over the scheduled
@@ -12,6 +14,19 @@ block multiples, ``PAD_COL = -1`` slots dropping out):
 * :func:`spmm_ell_fused_dense_grid`  — one GCN layer ``A (X W + b)``;
 * :func:`spmm_ell_fused_sparse_grid` — the fused layer over the k-tiles
   listed in ``kb_ids`` (``plan_fused_k_schedule``; ``-1`` = no-op step).
+
+Storage types, as ``repro.exec`` produces them (any other combination
+raises):
+
+* f32 values, f32 dense (or f32 ``x``/``w``);
+* bf16 values, bf16 dense (bf16 ``x``/``w``, ``cast_xw=torch.bfloat16``);
+* int8 values with one f32 scale per row block (``scales``), bf16 dense
+  (bf16 ``x``/``w``, ``cast_xw=torch.bfloat16``).
+
+Biases are f32 and every sum is f32.  An int8 launch counts under the
+kernel's name with ``_scaled`` appended (the TPU kernels' ``_scaled``
+variants), a bf16 launch under the kernel's own name;
+:data:`PRECISION_LAUNCHES` counts them apart.
 
 On CUDA tensors a wrapper launches its kernel from
 ``csrc/flexvector_spmm.cu`` (built at first use) and counts the launch in
@@ -31,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import PAD_COL, spmm_ell_ref
+from repro_torch.kernels.ref import PAD_COL, dequantize_rows, spmm_ell_ref
 
 #: Launches of each CUDA kernel in this process, bumped only where a
 #: wrapper launches its kernel.
@@ -40,27 +55,54 @@ LAUNCHES: Dict[str, int] = {
     "spmm_ell_sparse_grid": 0,
     "spmm_ell_fused_dense_grid": 0,
     "spmm_ell_fused_sparse_grid": 0,
+    "spmm_ell_dense_grid_scaled": 0,
+    "spmm_ell_sparse_grid_scaled": 0,
+    "spmm_ell_fused_dense_grid_scaled": 0,
+    "spmm_ell_fused_sparse_grid_scaled": 0,
 }
 
+# Value types: the C interface's code and the precision's name.
+_VTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.int8: "int8"}
+
+#: The same launches by the precision of the values, ``"<name>@<precision>"``
+#: (a bf16 launch counts under the f32 kernel's name in :data:`LAUNCHES`
+#: and apart from it only here).
+PRECISION_LAUNCHES: Dict[str, int] = {
+    f"{name}@{precision}": 0
+    for name in LAUNCHES
+    for precision in (("int8",) if name.endswith("_scaled")
+                      else ("f32", "bf16"))
+}
+
+#: Rows of ``X W + b`` one CTA of the bf16/int8 fused kernels forms; the
+#: fused slot lists (:func:`column_slots`) group ELL slots by it.  Must
+#: equal ``kXwRows`` in ``csrc/flexvector_spmm.cu``.
+XW_TILE_ROWS = 64
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PRECISION_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 # -- library binding ---------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # cols, vals, dense, out, R, tau, K, F, BR, BK, BF, stream
-    "fv_spmm_dense_grid": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    # cols, vals, dense, out, tile_bitmaps, R, tau, K, F, BR, BK, BF, stream
-    "fv_spmm_sparse_grid": [_P] * 5 + [_I] * 7 + [_P],
-    # cols, vals, x, w, b, out, R, tau, K, F_in, F_out, k_real, BK, stream
-    "fv_fused_dense_grid": [_P] * 6 + [_I] * 7 + [_P],
-    # cols, vals, x, w, b, out, kb_ids, n_steps,
-    # R, tau, K, F_in, F_out, k_real, BK, stream
-    "fv_fused_sparse_grid": [_P] * 7 + [_I] * 8 + [_P],
+    # cols, vals, scales, dense, out, R, tau, K, F, BR, BK, BF, vtype, stream
+    "fv_spmm_dense_grid": [_P] * 5 + [_I] * 8 + [_P],
+    # cols, vals, scales, dense, out, tile_bitmaps,
+    # R, tau, K, F, BR, BK, BF, vtype, stream
+    "fv_spmm_sparse_grid": [_P] * 6 + [_I] * 8 + [_P],
+    # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
+    # n_chunks, R, tau, K, F_in, F_out, k_real, BR, BK, vtype, stream
+    "fv_fused_dense_grid": [_P] * 10 + [_I] * 10 + [_P],
+    # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
+    # n_chunks, kb_ids, n_steps,
+    # R, tau, K, F_in, F_out, k_real, BR, BK, vtype, stream
+    "fv_fused_sparse_grid": [_P] * 10 + [_I, _P] + [_I] * 10 + [_P],
 }
 _BOUND: Optional[ctypes.CDLL] = None
 
@@ -78,27 +120,34 @@ def _lib() -> ctypes.CDLL:
     return _BOUND
 
 
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
-    """Call C function ``fn`` on ``device``'s current stream; count it."""
+def _launch(name: str, vals: torch.Tensor, fn: str, device: torch.device,
+            *args) -> None:
+    """Call C function ``fn`` on ``device``'s current stream with ``args``
+    and the value-type code of ``vals``; count it under kernel ``name``
+    (``_scaled`` appended for int8 values)."""
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        rc = getattr(lib, fn)(*ptrs, stream)
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]   # None passes as a null pointer
+        rc = getattr(lib, fn)(*ptrs, _VTYPE[vals.dtype], stream)
+    if vals.dtype == torch.int8:
+        name += "_scaled"
     if rc != 0:
         msg = lib.fv_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed ({rc}: {msg})")
     LAUNCHES[name] += 1
+    PRECISION_LAUNCHES[f"{name}@{_PRECISION[vals.dtype]}"] += 1
 
 
 # -- argument checks -----------------------------------------------------------
 
 
-def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+def _check_tensor(name: str, t: torch.Tensor, dtype, ndim: int,
                   device: torch.device) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
@@ -108,15 +157,29 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_ell(cols, vals) -> torch.device:
+def _check_ell(cols, vals, scales) -> torch.device:
+    """ELL table + int8 scales; returns the device.  ``scales`` goes with
+    int8 values and only with them."""
     dev = cols.device if isinstance(cols, torch.Tensor) else None
     _check_tensor("cols", cols, torch.int32, 2, dev)
-    _check_tensor("vals", vals, torch.float32, 2, dev)
+    _check_tensor("vals", vals, tuple(_VTYPE), 2, dev)
     if vals.shape != cols.shape:
         raise ValueError(f"vals {tuple(vals.shape)} != cols {tuple(cols.shape)}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if vals.dtype == torch.int8:
+        if scales is None:
+            raise TypeError("int8 vals need scales= (one f32 per row block)")
+        _check_tensor("scales", scales, torch.float32, 1, dev)
+    elif scales is not None:
+        raise TypeError(f"scales= goes with int8 vals, not {vals.dtype}")
     return dev
+
+
+def _operand_dtype(vals: torch.Tensor) -> torch.dtype:
+    """The dense operand's (or fused ``x``/``w``'s) dtype for these values:
+    f32 beside f32 values, bf16 beside bf16 or int8 values."""
+    return torch.float32 if vals.dtype == torch.float32 else torch.bfloat16
 
 
 def _check_padded(r: int, k: int, f: int, block_rows: int, block_k: int,
@@ -125,11 +188,17 @@ def _check_padded(r: int, k: int, f: int, block_rows: int, block_k: int,
         raise ValueError("operands must be padded to block multiples")
 
 
-def _check_fused(cols, vals, x, w, b, block_rows, block_k, block_f, k_real):
-    dev = _check_ell(cols, vals)
-    _check_tensor("x", x, torch.float32, 2, dev)
-    _check_tensor("w", w, torch.float32, 2, dev)
+def _check_fused(cols, vals, x, w, b, block_rows, block_k, block_f, k_real,
+                 scales, cast_xw):
+    dev = _check_ell(cols, vals, scales)
+    want = _operand_dtype(vals)
+    _check_tensor("x", x, want, 2, dev)
+    _check_tensor("w", w, want, 2, dev)
     _check_tensor("b", b, torch.float32, 2, dev)
+    want_cast = None if want == torch.float32 else torch.bfloat16
+    if cast_xw != want_cast:
+        raise TypeError(f"{vals.dtype} values take cast_xw={want_cast}, "
+                        f"got {cast_xw}")
     k, f_in = x.shape
     f_out = w.shape[1]
     if w.shape[0] != f_in or tuple(b.shape) != (1, f_out):
@@ -142,6 +211,16 @@ def _check_fused(cols, vals, x, w, b, block_rows, block_k, block_f, k_real):
     if not 0 <= k_real <= k:
         raise ValueError(f"k_real={k_real} outside [0, {k}]")
     return dev, k_real
+
+
+def _block_scales(scales: torch.Tensor, r: int,
+                  block_rows: int) -> torch.Tensor:
+    """One scale per row block of the padded table: trailing all-padding
+    row blocks get 1.0 (their values are zero), extra scales are cut."""
+    n_rb = r // block_rows
+    if scales.shape[0] < n_rb:
+        scales = torch.cat([scales, scales.new_ones(n_rb - scales.shape[0])])
+    return scales[:n_rb].contiguous()
 
 
 # -- shared masks ---------------------------------------------------------------
@@ -209,7 +288,7 @@ def _tile_counted(tile_bitmaps: torch.Tensor, cols: torch.Tensor,
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """Matmuls at full f32 (no TF32) inside, the caller's setting after."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,52 +298,105 @@ def _full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-# -- B1: dense grid ------------------------------------------------------------------
+# -- fused slot lists --------------------------------------------------------------
+
+
+def column_slots(cols, n_dense_rows: int):
+    """The ELL table transposed by column group, for the bf16/int8 fused
+    kernels: one chunk of slots per CTA.
+
+    Group ``g`` holds the slots whose column lies in rows ``[g * 64, (g +
+    1) * 64)`` of ``X`` (:data:`XW_TILE_ROWS`, the kernel's tile height);
+    PAD_COL slots and columns ``>= n_dense_rows`` are left out.  A group's
+    slots (flat indices ``r * tau + t``, in flat order) are cut into chunks
+    of at most 4x the mean per non-empty group (at least 256, a multiple
+    of 32), so that a hub column's group does not leave one CTA walking
+    most of the table; each chunk recomputes its group's tile of
+    ``X W + b``.
+
+    Host numpy, built once per graph.  Returns three int32 arrays:
+    ``group`` (the group of each chunk), ``start`` (chunk ``i`` is
+    ``ids[start[i]:start[i + 1]]``, one longer than ``group``) and ``ids``.
+    """
+    if isinstance(cols, torch.Tensor):
+        cols = cols.cpu().numpy()
+    c = np.asarray(cols).reshape(-1)
+    if c.size >= 2 ** 31:
+        raise ValueError("ELL table too large for int32 slot indices")
+    ids = np.flatnonzero((c >= 0) & (c < n_dense_rows))
+    group = c[ids] // XW_TILE_ROWS
+    ids = ids[np.argsort(group, kind="stable")]
+    counts = np.bincount(group, minlength=-(-n_dense_rows // XW_TILE_ROWS))
+    mean = ids.size / max(int(np.count_nonzero(counts)), 1)
+    max_chunk = max(256, 32 * -(-int(4 * mean) // 32))
+    per_group = -(-counts // max_chunk)                 # chunks per group
+    chunk_group = np.repeat(np.arange(counts.size), per_group)
+    # chunk j of group g starts at offset(g) + j * max_chunk
+    first = np.concatenate([[0], np.cumsum(per_group)[:-1]])
+    within = np.arange(chunk_group.size) - first[chunk_group]
+    offset = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    start = np.append(offset[chunk_group] + within * max_chunk, ids.size)
+    return (chunk_group.astype(np.int32), start.astype(np.int32),
+            ids.astype(np.int32))
+
+
+# -- B1 / B1s: dense grid ---------------------------------------------------------
 
 
 def spmm_ell_dense_grid_plain(cols, vals, dense, *, block_rows=128,
-                              block_k=128, block_f=128) -> torch.Tensor:
-    """Plain version of :func:`spmm_ell_dense_grid` (block sizes unused)."""
+                              block_k=128, block_f=128,
+                              scales=None) -> torch.Tensor:
+    """Plain version of :func:`spmm_ell_dense_grid`: int8 values are
+    dequantized (``float(q) * scale``), every operand widened to f32."""
+    if scales is not None:
+        vals = dequantize_rows(vals, scales, block_rows)
     keep = _counted(cols, dense.shape[0])
     return spmm_ell_ref(torch.where(keep, cols, PAD_COL), vals, dense)
 
 
 def spmm_ell_dense_grid(
     cols: torch.Tensor,   # (R, tau) int32, PAD_COL = -1 padding
-    vals: torch.Tensor,   # (R, tau) float32
-    dense: torch.Tensor,  # (K, F) float32
+    vals: torch.Tensor,   # (R, tau) float32, bfloat16 or int8
+    dense: torch.Tensor,  # (K, F) float32 (f32 vals) or bfloat16
     *,
     block_rows: int = 128,
     block_k: int = 128,
     block_f: int = 128,
+    scales: Optional[torch.Tensor] = None,  # int8: (R / BR,) f32 per row block
 ) -> torch.Tensor:
-    """Sub-row products ``out[r] = sum_t vals[r,t] dense[cols[r,t]]``, (R, F)."""
-    dev = _check_ell(cols, vals)
-    _check_tensor("dense", dense, torch.float32, 2, dev)
+    """Sub-row products ``out[r] = sum_t vals[r,t] dense[cols[r,t]]``, (R, F)
+    f32."""
+    dev = _check_ell(cols, vals, scales)
+    _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
     r, tau = cols.shape
     k, f = dense.shape
     _check_padded(r, k, f, block_rows, block_k, block_f)
+    if scales is not None:
+        scales = _block_scales(scales, r, block_rows)
     if dev.type == "cpu":
-        return spmm_ell_dense_grid_plain(cols, vals, dense)
+        return spmm_ell_dense_grid_plain(cols, vals, dense,
+                                         block_rows=block_rows, scales=scales)
     out = torch.empty(r, f, dtype=torch.float32, device=dev)
     if r and f:
-        _launch("spmm_ell_dense_grid", "fv_spmm_dense_grid", dev,
-                cols, vals, dense, out, r, tau, k, f,
-                block_rows, block_k, block_f)
+        _launch("spmm_ell_dense_grid", vals, "fv_spmm_dense_grid", dev,
+                cols, vals, scales, dense, out, r, tau, k, f, block_rows,
+                block_k, block_f)
     return out
 
 
-# -- B2: sparse grid -----------------------------------------------------------------
+# -- B2 / B2s: sparse grid --------------------------------------------------------
 
 
 def spmm_ell_sparse_grid_plain(cols, vals, dense, tile_bitmaps, *,
                                block_rows=128, block_k=128,
-                               block_f=128) -> torch.Tensor:
+                               block_f=128, scales=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_sparse_grid`: each row block counts
     only the ELL slots whose k-tile is set in its bitmap."""
     keep = _counted(cols, dense.shape[0]) & _tile_counted(
         tile_bitmaps, cols, block_rows, block_k)
-    return spmm_ell_ref(torch.where(keep, cols, PAD_COL), vals, dense)
+    return spmm_ell_dense_grid_plain(torch.where(keep, cols, PAD_COL), vals,
+                                     dense, block_rows=block_rows,
+                                     scales=scales)
 
 
 def spmm_ell_sparse_grid(
@@ -276,11 +408,12 @@ def spmm_ell_sparse_grid(
     block_rows: int = 128,
     block_k: int = 128,
     block_f: int = 128,
+    scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sub-row products over the (rb, kb) steps of a block-skipping schedule,
     given as :func:`schedule_tile_bitmaps` of its steps."""
-    dev = _check_ell(cols, vals)
-    _check_tensor("dense", dense, torch.float32, 2, dev)
+    dev = _check_ell(cols, vals, scales)
+    _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
     _check_tensor("tile_bitmaps", tile_bitmaps, torch.int32, 2, dev)
     r, tau = cols.shape
     k, f = dense.shape
@@ -289,74 +422,112 @@ def spmm_ell_sparse_grid(
     if tuple(tile_bitmaps.shape) != want:
         raise ValueError(f"tile_bitmaps must be (R/BR, ceil(K/BK/32)) = "
                          f"{want}, got {tuple(tile_bitmaps.shape)}")
+    if scales is not None:
+        scales = _block_scales(scales, r, block_rows)
     kw = dict(block_rows=block_rows, block_k=block_k, block_f=block_f)
     if dev.type == "cpu":
         return spmm_ell_sparse_grid_plain(cols, vals, dense, tile_bitmaps,
-                                          **kw)
+                                          scales=scales, **kw)
     out = torch.empty(r, f, dtype=torch.float32, device=dev)
     if r and f:
-        _launch("spmm_ell_sparse_grid", "fv_spmm_sparse_grid", dev,
-                cols, vals, dense, out, tile_bitmaps, r, tau, k, f,
+        _launch("spmm_ell_sparse_grid", vals, "fv_spmm_sparse_grid", dev,
+                cols, vals, scales, dense, out, tile_bitmaps, r, tau, k, f,
                 block_rows, block_k, block_f)
     return out
 
 
-# -- B3: fused dense grid -------------------------------------------------------------
+# -- B3 / B3s: fused dense grid ---------------------------------------------------
+
+
+def _fused_out(vals, slots, r: int, f_out: int, dev: torch.device):
+    """The fused kernels' output and slot-list arguments: f32 values write
+    every output element (no slot lists); bf16/int8 values add into a
+    zeroed output through the caller's :func:`column_slots` tensors,
+    passed on as ``(group, start, ids, n_chunks)``."""
+    if vals.dtype == torch.float32:
+        return torch.empty(r, f_out, device=dev), (None, None, None, 0)
+    if slots is None:
+        raise ValueError(f"{vals.dtype} values need slots=: column_slots "
+                         "of cols, on the device")
+    group, start, ids = slots
+    for i, t in enumerate(slots):
+        _check_tensor(f"slots[{i}]", t, torch.int32, 1, dev)
+    if start.shape[0] != group.shape[0] + 1:
+        raise ValueError(f"slots[1] must hold one more offset than slots[0] "
+                         f"has chunks: {start.shape[0]} vs {group.shape[0]}")
+    return (torch.zeros(r, f_out, device=dev),
+            (group, start, ids, group.shape[0]))
 
 
 def spmm_ell_fused_dense_grid_plain(cols, vals, x, w, b, *, block_rows=128,
-                                    block_k=128, block_f=128,
-                                    k_real=None) -> torch.Tensor:
+                                    block_k=128, block_f=128, k_real=None,
+                                    scales=None, cast_xw=None,
+                                    slots=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_fused_dense_grid`: materializes
-    ``x @ w + b`` (full f32, no TF32), zeroes rows >= ``k_real``, gathers."""
+    ``x @ w + b`` (operands widened to f32, full f32 product, no TF32),
+    zeroes rows >= ``k_real``, rounds to ``cast_xw`` if given, gathers.
+    ``slots`` (the kernel's slot lists) is not needed here."""
     k = x.shape[0]
     k_real = k if k_real is None else k_real
-    with _full_f32_matmul():
-        xw = torch.matmul(x, w) + b
+    with full_f32_matmul():
+        xw = torch.matmul(x.float(), w.float()) + b
     xw[k_real:] = 0.0
-    keep = _counted(cols, k)
-    return spmm_ell_ref(torch.where(keep, cols, PAD_COL), vals, xw)
+    if cast_xw is not None:
+        xw = xw.to(cast_xw)
+    return spmm_ell_dense_grid_plain(
+        torch.where(_counted(cols, k), cols, PAD_COL), vals, xw,
+        block_rows=block_rows, scales=scales)
 
 
 def spmm_ell_fused_dense_grid(
     cols: torch.Tensor,   # (R, tau) int32, PAD_COL = -1 padding
-    vals: torch.Tensor,   # (R, tau) float32
+    vals: torch.Tensor,   # (R, tau) float32, bfloat16 or int8
     x: torch.Tensor,      # (K, F_in) layer input, K % block_k == 0
     w: torch.Tensor,      # (F_in, F_out) layer weight, F_out % block_f == 0
-    b: torch.Tensor,      # (1, F_out) layer bias
+    b: torch.Tensor,      # (1, F_out) layer bias, float32
     *,
     block_rows: int = 128,
     block_k: int = 128,
     block_f: int = 128,
     k_real: Optional[int] = None,   # rows of x that are real (rest padding)
+    scales: Optional[torch.Tensor] = None,  # int8: (R / BR,) f32
+    cast_xw: Optional[torch.dtype] = None,  # bf16 under bf16/int8 values
+    slots: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> torch.Tensor:
-    """One GCN layer ``A (x @ w + b)`` in one launch, (R, F_out).
+    """One GCN layer ``A round(x @ w + b)`` in one launch, (R, F_out) f32.
 
-    Rows >= ``k_real`` of ``x @ w + b`` count as zero.  The intermediate
-    ``x @ w + b`` is never written to device memory.
+    Rows >= ``k_real`` of ``x @ w + b`` count as zero; ``cast_xw`` rounds
+    it (bf16 under bf16/int8 values).  The intermediate ``x @ w + b`` is
+    never written to device memory.  ``slots`` is :func:`column_slots` of
+    ``cols`` as int32 tensors on the device, which bf16/int8 values need on
+    CUDA (the dispatcher builds it once per graph and ``K``).
     """
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
-                               block_f, k_real)
+                               block_f, k_real, scales, cast_xw)
     r, tau = cols.shape
     k, f_in = x.shape
     f_out = w.shape[1]
+    if scales is not None:
+        scales = _block_scales(scales, r, block_rows)
     if dev.type == "cpu":
-        return spmm_ell_fused_dense_grid_plain(cols, vals, x, w, b,
-                                               k_real=k_real)
-    out = torch.empty(r, f_out, dtype=torch.float32, device=dev)
+        return spmm_ell_fused_dense_grid_plain(
+            cols, vals, x, w, b, block_rows=block_rows, k_real=k_real,
+            scales=scales, cast_xw=cast_xw)
+    out, slots = _fused_out(vals, slots, r, f_out, dev)
     if r and f_out:
-        _launch("spmm_ell_fused_dense_grid", "fv_fused_dense_grid", dev,
-                cols, vals, x, w, b, out, r, tau, k, f_in, f_out, k_real,
-                block_k)
+        _launch("spmm_ell_fused_dense_grid", vals, "fv_fused_dense_grid",
+                dev, cols, vals, scales, x, w, b, out, *slots, r, tau, k,
+                f_in, f_out, k_real, block_rows, block_k)
     return out
 
 
-# -- B4: fused sparse grid ------------------------------------------------------------
+# -- B4 / B4s: fused sparse grid --------------------------------------------------
 
 
 def spmm_ell_fused_sparse_grid_plain(cols, vals, x, w, b, kb_ids, *,
                                      block_rows=128, block_k=128,
-                                     block_f=128, k_real=None) -> torch.Tensor:
+                                     block_f=128, k_real=None, scales=None,
+                                     cast_xw=None, slots=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_fused_sparse_grid`: the fused layer
     counting only ELL slots whose k-tile is listed in ``kb_ids``."""
     k = x.shape[0]
@@ -367,7 +538,8 @@ def spmm_ell_fused_sparse_grid_plain(cols, vals, x, w, b, kb_ids, *,
     keep = _counted(cols, k) & listed[:n_kb][
         _tile_of(cols, block_k).clamp(max=max(n_kb - 1, 0))]
     return spmm_ell_fused_dense_grid_plain(
-        torch.where(keep, cols, PAD_COL), vals, x, w, b, k_real=k_real)
+        torch.where(keep, cols, PAD_COL), vals, x, w, b,
+        block_rows=block_rows, k_real=k_real, scales=scales, cast_xw=cast_xw)
 
 
 def spmm_ell_fused_sparse_grid(
@@ -382,6 +554,9 @@ def spmm_ell_fused_sparse_grid(
     block_k: int = 128,
     block_f: int = 128,
     k_real: Optional[int] = None,
+    scales: Optional[torch.Tensor] = None,
+    cast_xw: Optional[torch.dtype] = None,
+    slots: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> torch.Tensor:
     """The fused layer over the k-tiles listed in ``kb_ids``.
 
@@ -389,31 +564,44 @@ def spmm_ell_fused_sparse_grid(
     no-op steps (the sharded path pads per-shard schedules with them).
     """
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
-                               block_f, k_real)
+                               block_f, k_real, scales, cast_xw)
     _check_tensor("kb_ids", kb_ids, torch.int32, 1, dev)
     n_steps = kb_ids.shape[0]
     r, tau = cols.shape
     k, f_in = x.shape
     f_out = w.shape[1]
+    if scales is not None:
+        scales = _block_scales(scales, r, block_rows)
     if dev.type == "cpu":
         return spmm_ell_fused_sparse_grid_plain(
             cols, vals, x, w, b, kb_ids, block_rows=block_rows,
-            block_k=block_k, block_f=block_f, k_real=k_real)
-    out = torch.empty(r, f_out, dtype=torch.float32, device=dev)
+            block_k=block_k, block_f=block_f, k_real=k_real, scales=scales,
+            cast_xw=cast_xw)
+    out, slots = _fused_out(vals, slots, r, f_out, dev)
     if r and f_out:
-        _launch("spmm_ell_fused_sparse_grid", "fv_fused_sparse_grid", dev,
-                cols, vals, x, w, b, out, kb_ids, n_steps, r, tau, k, f_in,
-                f_out, k_real, block_k)
+        _launch("spmm_ell_fused_sparse_grid", vals, "fv_fused_sparse_grid",
+                dev, cols, vals, scales, x, w, b, out, *slots, kb_ids,
+                n_steps, r, tau, k, f_in, f_out, k_real, block_rows,
+                block_k)
     return out
 
 
-#: Each kernel's plain PyTorch version, by kernel name.
+#: Each kernel's wrapper and plain PyTorch version, by the name it counts
+#: under in :data:`LAUNCHES` (``*_scaled``: the same function, int8 values).
+KERNELS = {
+    "spmm_ell_dense_grid": spmm_ell_dense_grid,
+    "spmm_ell_sparse_grid": spmm_ell_sparse_grid,
+    "spmm_ell_fused_dense_grid": spmm_ell_fused_dense_grid,
+    "spmm_ell_fused_sparse_grid": spmm_ell_fused_sparse_grid,
+}
+KERNELS.update({f"{name}_scaled": fn for name, fn in list(KERNELS.items())})
 PLAIN = {
     "spmm_ell_dense_grid": spmm_ell_dense_grid_plain,
     "spmm_ell_sparse_grid": spmm_ell_sparse_grid_plain,
     "spmm_ell_fused_dense_grid": spmm_ell_fused_dense_grid_plain,
     "spmm_ell_fused_sparse_grid": spmm_ell_fused_sparse_grid_plain,
 }
+PLAIN.update({f"{name}_scaled": fn for name, fn in list(PLAIN.items())})
 
 
 def pad_operands(

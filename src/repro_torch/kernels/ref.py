@@ -1,4 +1,4 @@
-"""Plain PyTorch oracle for the FlexVector ELL products."""
+"""Plain PyTorch oracles for the FlexVector ELL products."""
 
 from __future__ import annotations
 
@@ -25,4 +25,51 @@ def spmm_ell_ref(cols: torch.Tensor, vals: torch.Tensor,
                       device=dense.device)
     for t in range(cols.shape[1]):
         out += w[:, t, None] * dense[safe[:, t]].float()
+    return out
+
+
+def spmm_ell_quant_ref(cols: torch.Tensor, q_vals: torch.Tensor,
+                       scales: torch.Tensor, dense: torch.Tensor,
+                       block_rows: int) -> torch.Tensor:
+    """Dequantize-then-multiply oracle for the int8 sub-row product path.
+
+    Dequantizes the symmetric per-row-block int8 values exactly (f32
+    multiply by the block scale; rows past the last scale take 1.0) and
+    runs :func:`spmm_ell_ref`.
+    """
+    return spmm_ell_ref(cols, dequantize_rows(q_vals, scales, block_rows),
+                        dense)
+
+
+def row_scales(scales, block_rows: int, n_rows: int) -> torch.Tensor:
+    """Per-block scales as a per-row f32 vector of length ``n_rows`` (rows
+    past the last scaled block take 1.0)."""
+    expanded = torch.as_tensor(scales, dtype=torch.float32).repeat_interleave(
+        block_rows)
+    if expanded.shape[0] < n_rows:
+        expanded = torch.cat(
+            [expanded, expanded.new_ones(n_rows - expanded.shape[0])])
+    return expanded[:n_rows]
+
+
+def dequantize_rows(q_vals: torch.Tensor, scales, block_rows: int) -> torch.Tensor:
+    """``(R, ...)`` int8 values times their row block's f32 scale, in f32."""
+    r = q_vals.shape[0]
+    rs = row_scales(scales, block_rows, r).to(q_vals.device)
+    return q_vals.to(torch.float32) * rs.reshape((r,) + (1,) * (q_vals.dim() - 1))
+
+
+def expand_block_ref(cols: torch.Tensor, vals: torch.Tensor, kb_base: int,
+                     block_k: int, acc_dtype=torch.float32) -> torch.Tensor:
+    """Oracle for the TPU kernels' one-hot block expansion: the (BR, tau)
+    ELL slab as a dense (BR, block_k) block of k-tile ``kb_base``."""
+    br, tau = cols.shape
+    local = cols.long() - kb_base
+    in_range = (local >= 0) & (local < block_k) & (cols != PAD_COL)
+    out = torch.zeros(br, block_k, dtype=acc_dtype, device=cols.device)
+    rows = torch.arange(br, device=cols.device)[:, None].expand(br, tau)
+    zero = torch.zeros((), dtype=acc_dtype, device=cols.device)
+    out.index_put_((rows.reshape(-1), torch.where(in_range, local, 0).reshape(-1)),
+                   torch.where(in_range, vals.to(acc_dtype), zero).reshape(-1),
+                   accumulate=True)
     return out

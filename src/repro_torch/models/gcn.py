@@ -134,6 +134,12 @@ def gcn_forward(
     entry and the output is permuted back on exit.  ``plan`` defaults to
     the static plan of ``cfg``.  Runs on ``"cuda"`` unless ``device``
     says otherwise; ``params`` must already be there.
+
+    ``precision`` (``f32`` | ``bf16`` | ``int8``, ``exec.quant``
+    semantics) is stamped on the plan and quantizes the layer weights per
+    ``plan.block_rows`` rows, so combination and aggregation both run at
+    the reduced storage width with f32 accumulation; a ``plan`` that
+    already carries a non-f32 precision is honoured.
     """
     dev = resolve_device(device)
     quant.validate_precision(precision)
@@ -144,11 +150,15 @@ def gcn_forward(
             f"plan={plan!r}: only a static SpmmPlan is ported (the cost "
             "model behind plan='auto' is a queued slice)"
         )
+    if precision != "f32" and plan.precision != precision:
+        plan = dataclasses.replace(plan, precision=precision)
+    params = quant.quantize_params(params, plan.precision, plan.block_rows)
     operands, perm, inv = graph.on_device(dev)
     x = torch.as_tensor(features, dtype=torch.float32, device=dev)[perm]
     n_layers = len(params)
     for i in range(n_layers):
-        x = execute_layer(plan, operands, x, params[f"layer_{i}"])
+        x = execute_layer(plan, operands, x, params[f"layer_{i}"],
+                          w_block_rows=plan.block_rows)
         if i < n_layers - 1:
             x = torch.relu(x)
     return x[inv]

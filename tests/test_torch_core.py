@@ -239,12 +239,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
 def test_unported_precisions_raise_not_implemented(precision):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        quant.validate_precision(precision)
-    with pytest.raises(NotImplementedError):
-        SpmmPlan(impl="cuda", precision=precision)
+    """bf16 and int8 validate and plan like f32, with their byte widths;
+    a precision the reference does not have raises ValueError."""
+    assert quant.validate_precision(precision) == precision
+    assert quant.validate_precision("f32") == "f32"
+    assert SpmmPlan(impl="cuda", precision=precision).precision == precision
+    assert quant.bytes_per_value(precision) == {"bf16": 2, "int8": 1}[precision]
+    assert quant.activation_bytes(precision) == 2
     with pytest.raises(ValueError, match="unknown precision"):
         quant.validate_precision("fp8")
+    with pytest.raises(ValueError, match="unknown precision"):
+        SpmmPlan(impl="cuda", precision="fp8")
 
 
 def test_impl_name_table_and_static_plan():

@@ -26,11 +26,31 @@ from repro_torch.models.gcn import GCNConfig, GCNGraph, gcn_forward
 # another f32 order.
 TOL = {"spmm_ell_dense_grid": 1e-5, "spmm_ell_sparse_grid": 1e-5,
        "spmm_ell_fused_dense_grid": 1e-4, "spmm_ell_fused_sparse_grid": 1e-4}
+# bf16/int8 fused: X W + b is summed in another f32 order than the plain
+# version's matmul before its bf16 rounding, so an element near a rounding
+# boundary can land one bf16 ulp (2^-8 of itself) away.  Such flips are
+# rare: at most FLIP_SHARE of the elements may be off by more than 1e-5
+# of the scale, where a missing rounding moves most of them.
+QUANT_FUSED_TOL = 8e-3
+FLIP_SHARE = 1e-2
+# bf16/int8 forward vs the CPU: each layer rounds X W + b to bf16 after f32
+# sums taken in another order (and index_add_ adds with atomics), so a
+# flip moves the few logits that aggregate it (at most
+# FORWARD_FLIP_SHARE of them); an f32 forward in its place moves most of
+# them by ~2e-3 or more.
+QUANT_FORWARD_TOL = 2e-3
+FORWARD_FLIP_SHARE = 5e-2
 
 
 def rel_max_err(out, ref) -> float:
     out, ref = out.double().cpu(), ref.double().cpu()
     return float((out - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def flip_share(out, ref) -> float:
+    """Share of elements off by more than 1e-5 of max|ref|."""
+    out, ref = out.double().cpu(), ref.double().cpu()
+    return float(((out - ref).abs() > 1e-5 * ref.abs().max()).double().mean())
 
 
 @pytest.fixture
@@ -41,11 +61,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _random_case(seed, r=96, tau=5, k=64, f=40, f_in=37, br=16, bk=16, bf=8):
+def _random_case(seed, r=96, tau=5, k=64, f=40, f_in=37, br=16, bk=16, bf=8,
+                 hub=False):
     """Ragged shapes, an empty row block, a shuffled schedule with a row
-    block visited twice (its last run counts) and -1-padded kb_ids."""
+    block visited twice (its last run counts) and -1-padded kb_ids.  With
+    ``hub``, two thirds of the rows share column 5 in three of their slots."""
     rng = np.random.default_rng(seed)
     cols = rng.integers(0, k, (r, tau)).astype(np.int32)
+    if hub:
+        cols[:2 * r // 3, :3] = 5
     cols[rng.random((r, tau)) < 0.3] = -1
     cols[br:2 * br] = -1
     vals = rng.standard_normal((r, tau)).astype(np.float32)
@@ -100,6 +124,66 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_quant_kernels_match_plain_versions(cuda_device, seed, precision):
+    """The bf16 instantiations of the four kernels and their int8
+    ``_scaled`` variants against their plain versions on the card; seed 2
+    has widths that are no multiple of 4 (the kernels' scalar paths).  A
+    hub column makes its group's slots span several CTAs."""
+    c = _random_case(seed, r=768, k=640, bk=64, hub=True,
+                     **({"f": 38, "bf": 2} if seed == 2 else {}))
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda_device)
+
+    kw = c["kw"]
+    cols = t(c["cols"], torch.int32)
+    vals32 = t(c["vals"])
+    extra = {}
+    if precision == "int8":
+        n_rb = c["cols"].shape[0] // kw["block_rows"]
+        scales = t(np.random.default_rng(seed).uniform(0.01, 0.1, n_rb - 1))
+        vals = t(np.clip(np.rint(c["vals"] * 40), -127, 127), torch.int8)
+        extra["scales"] = scales    # one short: the last block takes 1.0
+    else:
+        vals = vals32.to(torch.bfloat16)
+    dense = t(c["dense"]).to(torch.bfloat16)
+    x, w = t(c["x"]).to(torch.bfloat16), t(c["w"]).to(torch.bfloat16)
+    b = t(c["b"])
+    bitmaps = t(fv.schedule_tile_bitmaps(
+        c["rb_ids"], c["kb_ids"], c["first"],
+        c["cols"].shape[0] // kw["block_rows"],
+        c["dense"].shape[0] // kw["block_k"]), torch.int32)
+    group, start, ids = fv.column_slots(c["cols"], c["dense"].shape[0])
+    assert len(set(group.tolist())) < len(group)   # a group in >1 chunk
+    slots = tuple(t(a, torch.int32) for a in (group, start, ids))
+    fkw = dict(extra, k_real=c["k_real"], cast_xw=torch.bfloat16,
+               slots=slots)
+    with pytest.raises(ValueError, match="need slots="):
+        fv.spmm_ell_fused_dense_grid(cols, vals, x, w, b, **kw,
+                                     **dict(fkw, slots=None))
+    suffix = "_scaled" if precision == "int8" else ""
+    calls = {
+        "spmm_ell_dense_grid": ((cols, vals, dense), extra),
+        "spmm_ell_sparse_grid": ((cols, vals, dense, bitmaps), extra),
+        "spmm_ell_fused_dense_grid": ((cols, vals, x, w, b), fkw),
+        "spmm_ell_fused_sparse_grid": (
+            (cols, vals, x, w, b, t(c["kb_f"], torch.int32)), fkw),
+    }
+    for name, (args, more) in calls.items():
+        before = fv.LAUNCHES[name + suffix]
+        out = fv.KERNELS[name + suffix](*args, **kw, **more)
+        ref = fv.PLAIN[name + suffix](*args, **kw, **more)
+        torch.cuda.synchronize()
+        assert fv.LAUNCHES[name + suffix] == before + 1
+        tol = TOL[name] if "fused" not in name else QUANT_FUSED_TOL
+        assert rel_max_err(out, ref) <= tol, (name, precision)
+        assert flip_share(out, ref) <= FLIP_SHARE, (name, precision)
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_refuses_mixed_devices(cuda_device):
     cols = torch.zeros(16, 2, dtype=torch.int32, device=cuda_device)
     vals = torch.zeros(16, 2, device=cuda_device)
@@ -131,3 +215,41 @@ def test_cuda_forward_matches_cpu(cuda_device, impl, fused):
                       cfg, plan=plan, device=cuda_device)
     assert fv.LAUNCHES != before          # the forward went through a kernel
     assert rel_max_err(out, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+def test_cuda_quant_forward_matches_cpu(cuda_device, impl, fused, precision):
+    n = 320
+    adj = random_power_law_csr(n, n, 5000, alpha=2.8, seed=0)
+    cfg = GCNConfig(in_dim=24, hidden_dim=32, out_dim=5, block_rows=32,
+                    block_k=32, block_f=32)
+    graph = GCNGraph.build(adj, cfg)
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((n, 24)).astype(np.float32)
+    params = {f"layer_{i}": {"w": rng.standard_normal(s).astype(np.float32),
+                             "b": rng.standard_normal(s[1]).astype(np.float32)}
+              for i, s in enumerate([(24, 32), (32, 5)])}
+    plan = SpmmPlan(impl=impl, block_rows=32, block_k=32, block_f=32,
+                    fused=fused)
+    ref = gcn_forward(params_from_numpy(params, "cpu"), graph, feats, cfg,
+                      plan=plan, precision=precision, device="cpu")
+    scaled = "spmm_ell_dense_grid_scaled" if impl == "cuda" else \
+        "spmm_ell_sparse_grid_scaled"
+    if fused:
+        scaled = scaled.replace("spmm_ell_", "spmm_ell_fused_")
+    before = dict(fv.LAUNCHES)
+    by_precision = dict(fv.PRECISION_LAUNCHES)
+    out = gcn_forward(params_from_numpy(params, cuda_device), graph, feats,
+                      cfg, plan=plan, precision=precision, device=cuda_device)
+    launched = {k for k in fv.LAUNCHES if fv.LAUNCHES[k] != before[k]}
+    assert (scaled in launched) == (precision == "int8"), launched
+    # every launch ran on values of this precision (the blocks align the
+    # int8 scales with the row blocks, so none falls back to bf16)
+    at = {k for k in fv.PRECISION_LAUNCHES
+          if fv.PRECISION_LAUNCHES[k] != by_precision[k]}
+    assert at and all(k.endswith(f"@{precision}") for k in at), at
+    assert rel_max_err(out, ref) <= QUANT_FORWARD_TOL
+    assert flip_share(out, ref) <= FORWARD_FLIP_SHARE

@@ -9,6 +9,13 @@ the CPU.  Tolerance: max|port - reference| <= 1e-5 * max|reference| —
 both sides sum the same f32 products in another order (the reference's
 own fused and unfused f32 outputs differ by ~1e-7 of their scale).  The
 DRAM ledger, a host-side byte model, must match exactly.
+
+At bf16/int8 storage the same 1e-5 holds: the weights quantize bit-equal
+(``tests/test_torch_quant.py``), and on these inputs no f32 sum taken in
+another order lands on the other side of a bf16 rounding (one such flip
+would show as ~1e-3).  Against the f32 reference both stay within the
+reference's own logit budgets (``tests/test_quant.py``): bf16 <= 0.02,
+int8 <= 0.05.
 """
 
 import dataclasses
@@ -22,6 +29,7 @@ import torch
 from repro.core import random_power_law_csr as j_power_law
 from repro.dist.collectives import LEDGER as J_LEDGER
 from repro.exec import plan_for_config as j_plan_for_config
+from repro.exec import quant as jq
 from repro.models import gcn as jgcn
 
 from repro_torch.core.sparse_formats import random_power_law_csr as t_power_law
@@ -32,6 +40,7 @@ from repro_torch.models.convert import params_from_numpy
 
 RTOL = 1e-5
 IMPLS = ["reference", "pallas", "pallas_sparse"]
+LOGIT_BUDGET = {"bf16": 0.02, "int8": 0.05}
 
 
 def rel_max_err(out, ref) -> float:
@@ -76,24 +85,26 @@ def _graphs(case):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(case, impl, fused):
+def _reference(case, impl, fused, precision="f32"):
     feats, params = _inputs(case)
     jgraph, _ = _graphs(case)
     cfg = jgcn.GCNConfig(**_dims(case), spmm_impl=impl)
     plan = dataclasses.replace(j_plan_for_config(cfg), fused=fused)
     J_LEDGER.reset()
-    out = np.asarray(jgcn.gcn_forward(params, jgraph, feats, cfg, plan=plan))
+    out = np.asarray(jgcn.gcn_forward(params, jgraph, feats, cfg, plan=plan,
+                                      precision=precision))
     return out, J_LEDGER.snapshot()
 
 
-def _port(case, impl, fused):
+@functools.lru_cache(maxsize=None)
+def _port(case, impl, fused, precision="f32"):
     feats, params = _inputs(case)
     _, tgraph = _graphs(case)
     cfg = tgcn.GCNConfig(**_dims(case), spmm_impl=IMPL_NAMES[impl])
     plan = dataclasses.replace(tgcn.plan_for_config(cfg), fused=fused)
     T_LEDGER.reset()
     out = tgcn.gcn_forward(params_from_numpy(params, "cpu"), tgraph, feats,
-                           cfg, plan=plan, device="cpu")
+                           cfg, plan=plan, precision=precision, device="cpu")
     return out.numpy(), T_LEDGER.snapshot()
 
 
@@ -115,6 +126,33 @@ def test_ledger_matches_reference_exactly(impl, fused):
     assert out == ref
     kinds = set(out["counts"])
     assert ("fused_dram" in kinds) == (fused and impl != "reference")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_gcn_forward_quant_matches_reference(case, impl, fused, precision):
+    ref, _ = _reference(case, impl, fused, precision)
+    out, _ = _port(case, impl, fused, precision)
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    assert rel_max_err(out, ref) <= RTOL
+    f32, _ = _reference(case, "reference", False)
+    assert 0.0 < jq.logit_error(f32, out) <= LOGIT_BUDGET[precision]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ledger_matches_reference_exactly_quant(impl, fused, precision):
+    """The int8 scale vector and the narrower value / activation widths
+    enter the byte model exactly as in the reference."""
+    _, ref = _reference("skewed", impl, fused, precision)
+    _, out = _port("skewed", impl, fused, precision)
+    assert out == ref
+    _, f32 = _port("skewed", impl, fused)
+    assert set(out["counts"]) == set(f32["counts"])
+    assert sum(out["bytes"].values()) < sum(f32["bytes"].values())
 
 
 def test_gcn_loss_and_accuracy_match_reference():

@@ -8,6 +8,7 @@ the same f32 products (at most tau per output for the aggregation,
 F_in-long dot products for the fused layer's ``x @ w``) in another order.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +16,7 @@ import torch
 from repro.core import preprocess as j_preprocess
 from repro.core import random_power_law_csr as j_power_law
 from repro.core.dataflow import plan_fused_k_schedule, plan_kernel_grid
+from repro.exec import quant as jq
 from repro.kernels import flexvector_spmm as jfv
 
 from repro_torch.kernels import flexvector_spmm as tfv
@@ -203,3 +205,160 @@ def test_pad_operands_then_kernel_equals_unpadded_product():
     out = tfv.spmm_ell_dense_grid(cp, vp, dp, **KW)[:r, :f]
     torch.testing.assert_close(out, tfv.spmm_ell_dense_grid_plain(
         cols, vals, dense), rtol=0, atol=0)
+
+
+# -- storage precision: bf16 instantiations and the int8 ``_scaled`` variants --
+#
+# ``tests/test_quant.py``'s problem size (n=96, nnz=700, tau 5, blocks 16).
+# Both sides get the same storage-dtype inputs: int8 values + f32 scales
+# from the reference's quantizer, bf16 values / dense / x / w rounded once
+# by JAX and carried across exactly.  Aggregation: 1e-5 of the output
+# scale (the same f32 products, summed in another order).  Fused: 8e-3 —
+# ``X W + b`` is summed in f32 in another order before its bf16 rounding
+# (``cast_xw``), so an element near a rounding boundary can land one bf16
+# ulp (2^-8 of itself) away.  Such flips are rare: at most
+# QUANT_FLIP_SHARE of the elements may be off by more than RTOL of the
+# scale, where a missing rounding moves most of them.
+QUANT_FUSED_RTOL = 8e-3
+QUANT_FLIP_SHARE = 1e-2
+
+
+def flip_share(out, ref) -> float:
+    """Share of elements off by more than RTOL of max|ref|."""
+    out = np.asarray(out, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    return float(np.mean(np.abs(out - ref) > RTOL * np.max(np.abs(ref))))
+
+
+def _quant_operands(precision, seed=0, f=32, f_in=20):
+    res = j_preprocess(j_power_law(96, 96, 700, seed=seed), tau=5,
+                       tile_rows=16, edge_cut="rcm", pad_rows_to=BR)
+    e = res.ell
+    rng = np.random.default_rng(seed + 20)
+    k = e.n_dense_rows
+
+    def bf16(shape):
+        return jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+
+    if precision == "int8":
+        vals, scales = jq.quantize_values(np.asarray(e.vals), BR)
+        jvals, tvals = jnp.asarray(vals), _t(vals, torch.int8)
+        jsc, tsc = dict(scales=jnp.asarray(scales)), dict(scales=_t(scales))
+    else:
+        jvals = jnp.asarray(e.vals, jnp.bfloat16)
+        tvals = _t(np.asarray(jvals.astype(jnp.float32))).to(torch.bfloat16)
+        jsc, tsc = {}, {}
+    j = dict(cols=jnp.asarray(e.cols), vals=jvals, dense=bf16((k, f)),
+             x=bf16((k, f_in)), w=bf16((f_in, f)),
+             b=jnp.asarray(rng.standard_normal((1, f)), jnp.float32))
+    t = {name: (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+                if a.dtype == jnp.bfloat16 else _t(np.asarray(a)))
+         for name, a in j.items() if name not in ("cols", "vals")}
+    t.update(cols=_t(e.cols, torch.int32), vals=tvals)
+    return e, j, jsc, t, tsc
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["dense_grid", "sparse_grid"])
+def test_quant_aggregation_plain_matches_pallas(kernel, precision):
+    e, j, jsc, t, tsc = _quant_operands(precision, seed=1)
+    if kernel == "dense_grid":
+        ref = jfv.spmm_ell_dense_grid(j["cols"], j["vals"], j["dense"], **KW,
+                                      **jsc)
+        out = tfv.spmm_ell_dense_grid(t["cols"], t["vals"], t["dense"], **KW,
+                                      **tsc)
+    else:
+        rb, kb, first = _grid(e, drop_step=True)
+        ref = jfv.spmm_ell_sparse_grid(j["cols"], j["vals"], j["dense"], rb,
+                                       kb, first, **KW, **jsc)
+        out = tfv.spmm_ell_sparse_grid(t["cols"], t["vals"], t["dense"],
+                                       _bitmaps(e, (rb, kb, first)), **KW,
+                                       **tsc)
+    assert out.dtype == torch.float32
+    assert rel_max_err(out, ref) <= RTOL
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("kernel", ["fused_dense_grid", "fused_sparse_grid"])
+def test_quant_fused_plain_matches_pallas(kernel, precision):
+    e, j, jsc, t, tsc = _quant_operands(precision, seed=2)
+    k_real = e.n_dense_rows - 5
+    jargs = [j[n] for n in ("cols", "vals", "x", "w", "b")]
+    targs = [t[n] for n in ("cols", "vals", "x", "w", "b")]
+    kw = dict(KW, k_real=k_real)
+    if kernel == "fused_sparse_grid":
+        kb = _fused_schedule(e, drop_and_pad=True)
+        jargs.append(jnp.asarray(kb))
+        targs.append(_t(kb, torch.int32))
+    ref = getattr(jfv, f"spmm_ell_{kernel}")(*jargs, **kw, **jsc,
+                                             cast_xw=jnp.bfloat16)
+    out = getattr(tfv, f"spmm_ell_{kernel}")(*targs, **kw, **tsc,
+                                             cast_xw=torch.bfloat16)
+    assert rel_max_err(out, ref) <= QUANT_FUSED_RTOL
+    assert flip_share(out, ref) <= QUANT_FLIP_SHARE
+    # the share tells a missing cast_xw rounding apart
+    unrounded = getattr(tfv, f"spmm_ell_{kernel}_plain")(*targs, **kw, **tsc)
+    assert flip_share(unrounded, ref) > QUANT_FLIP_SHARE
+
+
+def test_quant_wrappers_refuse_unsupported_types():
+    _, _, _, t, tsc = _quant_operands("int8", seed=3)
+    cols, q, dense = t["cols"], t["vals"], t["dense"]
+    x, w, b = t["x"], t["w"], t["b"]
+    with pytest.raises(TypeError, match="need scales"):
+        tfv.spmm_ell_dense_grid(cols, q, dense, **KW)
+    with pytest.raises(TypeError, match="dense must be torch.bfloat16"):
+        tfv.spmm_ell_dense_grid(cols, q, dense.float(), **KW, **tsc)
+    with pytest.raises(TypeError, match="scales= goes with int8"):
+        tfv.spmm_ell_dense_grid(cols, q.to(torch.bfloat16), dense, **KW,
+                                **tsc)
+    with pytest.raises(TypeError, match="vals must be"):
+        tfv.spmm_ell_dense_grid(cols, q.to(torch.float16), dense, **KW)
+    with pytest.raises(TypeError, match="cast_xw"):
+        tfv.spmm_ell_fused_dense_grid(cols, q, x, w, b, **KW, **tsc)
+    with pytest.raises(TypeError, match="cast_xw"):
+        tfv.spmm_ell_fused_dense_grid(cols, q.float(), x.float(), w.float(),
+                                      b, **KW, cast_xw=torch.bfloat16)
+    with pytest.raises(TypeError, match="b must be torch.float32"):
+        tfv.spmm_ell_fused_dense_grid(cols, q, x, w, b.to(torch.bfloat16),
+                                      **KW, **tsc, cast_xw=torch.bfloat16)
+    # int8 launches count under their own names, bf16 under the kernel's
+    assert set(tfv.KERNELS) == set(tfv.PLAIN) == set(tfv.LAUNCHES)
+    assert sorted(tfv.PRECISION_LAUNCHES) == sorted(
+        [f"{n}@{p}" for n in tfv.LAUNCHES if not n.endswith("_scaled")
+         for p in ("f32", "bf16")]
+        + [f"{n}@int8" for n in tfv.LAUNCHES if n.endswith("_scaled")])
+    assert tfv.KERNELS["spmm_ell_dense_grid_scaled"] is tfv.spmm_ell_dense_grid
+
+
+def test_column_slots_transpose_the_table():
+    cols = np.array([[0, 70, -1], [65, 3, 127], [200, 64, 1]], np.int32)
+    group, start, ids = tfv.column_slots(cols, 130)
+    assert group.dtype == start.dtype == ids.dtype == np.int32
+    # groups [0, 64), [64, 128), [128, 130); 200 >= K and -1 drop out;
+    # the empty third group has no chunk
+    assert group.tolist() == [0, 1]
+    assert start.tolist() == [0, 3, 7]
+    assert ids.tolist() == [0, 4, 8, 1, 3, 5, 7]
+
+
+def test_column_slots_cut_hub_groups_into_chunks():
+    """A hub column's group is cut into chunks of at most 4x the mean per
+    non-empty group (and at least 256); every slot lands in one chunk of
+    its own group, in flat order."""
+    rng = np.random.default_rng(0)
+    cols = rng.integers(0, 640, (3000, 6)).astype(np.int32)
+    cols[:2000, :3] = 5                      # a hub column in group 0
+    cols[rng.random(cols.shape) < 0.1] = -1
+    group, start, ids = tfv.column_slots(cols, 640)
+    sizes = np.diff(start)
+    n_valid = int((cols >= 0).sum())
+    mean = n_valid / 10
+    # the hub group's chunks but its last are full
+    assert sizes.max() == max(256, 32 * -(-int(4 * mean) // 32))
+    assert (group == 0).sum() > 1 and (sizes > 0).all()
+    assert sorted(ids.tolist()) == np.flatnonzero(cols.reshape(-1) >= 0).tolist()
+    flat = cols.reshape(-1)
+    for g, lo, hi in zip(group, start[:-1], start[1:]):
+        chunk = ids[lo:hi]
+        assert (flat[chunk] // 64 == g).all() and (np.diff(chunk) > 0).all()

@@ -16,10 +16,13 @@ Phases, in order; any failure exits non-zero:
    function (``torch.sparse.mm``, never used by the port) and the least
    time the card could take for the layer's real widths at its storage
    widths (and, beside it, for the block-padded operands the kernel is
-   given).  As a control, the fused bf16/int8 plain version without its
-   bf16 rounding of ``X W + b`` must fail the agreement check.  A small
-   graph's forward pass on the card, at each precision, is held against
-   the same precision on the CPU.
+   given).  Each fused kernel's time is split into the zero fill of its
+   output, the product (its tiles of ``X W + b`` alone) and the scatter,
+   beside the scatter's and the fill's floor in device memory.
+   As a control, the fused bf16/int8 plain version without its bf16
+   rounding of ``X W + b`` must fail the agreement check.  A small graph's
+   forward pass on the card, at each precision, is held against the same
+   precision on the CPU.
 3. Main path, f32: the dataset at its published widths through
    ``GCNGraph.build`` and a 2-layer ``gcn_forward`` under the four kernel
    configs (dense/sparse grid x unfused/fused), each held against the
@@ -36,7 +39,8 @@ Phases, in order; any failure exits non-zero:
    values of another.  As a control, the f32 forward in the place of each
    must fail the agreement check.
 
-Prints one ``{"kernels": [...]}`` line, then as the last line
+Prints one ``{"fused_split": ...}`` line and one ``{"kernels": [...]}``
+line, then as the last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
@@ -84,11 +88,12 @@ BF16_FLOPS_PER_S = 989e12
 #
 # Kernel vs plain version.  Aggregation: the same tau products summed in
 # the same order, only FMA contraction differs (bf16/int8: the two
-# half-warps' partial sums are added last).  Fused f32: the kernel
-# re-associates to (sum_t v X[c]) W + (sum_t v) b, so each output is an
-# F_in-long f32 dot product taken in another order (error ~ sqrt(F_in) *
-# 2^-24 of its magnitude).  Fused bf16/int8: X W + b is summed in another
-# f32 order before its bf16 rounding, so an element near a rounding
+# half-warps' partial sums are added last).  Fused f32: each element of
+# X W + b is an F_in-long f32 dot product taken in another order than the
+# plain version's matmul (error ~ sqrt(F_in) * 2^-24 of its magnitude),
+# and the kernel's atomics add the tau terms of an output row in an order
+# that changes from run to run.  Fused bf16/int8: X W + b is summed in
+# another f32 order before its bf16 rounding, so an element near a rounding
 # boundary can land one bf16 ulp (2^-8 of itself) away.  Such flips are
 # rare, so the largest error may reach 8e-3 while few elements differ; a
 # kernel that skipped the rounding would differ in most of them (the
@@ -214,12 +219,15 @@ def is_aggregation(name: str) -> bool:
 def work(torch, name: str, args, kw, real=None) -> dict:
     """Least bytes and FLOPs the call needs on these inputs.
 
-    ``real`` is the unpadded ``(rows, output width)`` of the layer; the
-    padding rows and columns the kernel is also given are left out of the
-    count (``real=None`` counts the operands as given).  Bytes: each input
+    ``real`` is the unpadded ``(rows, output width)`` of the layer, and
+    for a fused kernel its unpadded input width third; the padding rows
+    and columns the kernel is also given are left out of the count
+    (``real=None`` counts the operands as given).  Bytes: each input
     read once at its storage width (only the rows of the dense operand or
     of X that the ELL table references; the int8 scale vector; the
-    schedule and slot lists), the f32 output written once.  FLOPs:
+    schedule), the f32 output written once; not the fused kernels' slot
+    lists, which the kernel's design adds (``fused_split`` prints their
+    cost).  FLOPs:
     aggregation 2 per counted slot and column; fused f32, the cheaper of
     X W on the referenced rows then aggregation, or aggregation of X then
     the product; fused bf16/int8 only the former, since X W + b is rounded
@@ -229,7 +237,7 @@ def work(torch, name: str, args, kw, real=None) -> dict:
     if real is None:
         real = (args[0].shape[0],
                 args[2 if is_aggregation(name) else 3].shape[1])
-    r, f = real
+    r, f = real[:2]
     cols, vals = args[0][:r], args[1]
     tau = cols.shape[1]
     ell_bytes = (4 + vals.element_size()) * r * tau
@@ -248,13 +256,12 @@ def work(torch, name: str, args, kw, real=None) -> dict:
         flops = 2 * nnz * f
     else:
         x, w = args[2], args[3]
-        f_in = x.shape[1]
+        f_in = real[2] if len(real) > 2 else x.shape[1]
         keep = (cols >= 0) & (cols < kw["k_real"])
         nnz = int(keep.sum())
         uniq = int(torch.unique(cols[keep]).numel())
         rows = int(keep.any(dim=1).sum())
         sched = sum(4 * a.numel() for a in args[5:])
-        sched += sum(4 * a.numel() for a in kw.get("slots") or ())
         nbytes = (ell_bytes + sched + x.element_size() * uniq * f_in
                   + w.element_size() * f_in * f + 4 * f + 4 * r * f)
         flops = 2 * uniq * f_in * f + 2 * nnz * f
@@ -344,9 +351,10 @@ def phase_device(torch, build) -> dict:
 
 
 def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
-    """Each phase 2 entry's (args, kwargs, (rows, width)) for both layers of
-    one forward pass at its precision, built by the same functions the
-    dispatch uses; (rows, width) is the unpadded output shape."""
+    """Each phase 2 entry's (args, kwargs, real) for both layers of one
+    forward pass at its precision, built by the same functions the
+    dispatch uses; real is the unpadded output shape (rows, width), for a
+    fused kernel followed by the unpadded input width."""
     from repro_torch.exec import quant
     from repro_torch.exec.dispatch import (aggregation_args, execute_layer,
                                            prepare_precision)
@@ -373,7 +381,7 @@ def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
                 cases[name + tag].append((args, kw, real))
                 name, args, kw, real = fused_args(plan, operands, x, layer,
                                                   cfg.block_rows)
-                cases[name + tag].append((args, kw, real))
+                cases[name + tag].append((args, kw, real + (x.shape[1],)))
             x = execute_layer(ref_plan, operands, x, layer,
                               w_block_rows=cfg.block_rows)
             if i < len(params) - 1:
@@ -385,8 +393,8 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
     """Small case off the main path's grid, for every phase 2 entry: F not
     a multiple of 128, a row block with no entries, k_real < K, a schedule
     that omits an occupied tile, a kb_ids list with -1 padding and, for
-    int8, one scale fewer than row blocks (the last takes 1.0); bf16/int8
-    fused calls get the table's slot lists."""
+    int8, one scale fewer than row blocks (the last takes 1.0); fused calls
+    get the table's slot lists."""
     from repro_torch.core.dataflow import plan_fused_k_schedule, plan_kernel_grid
     from repro_torch.core.sparse_formats import TiledELL
     from repro_torch.kernels.flexvector_spmm import (column_slots,
@@ -425,12 +433,12 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
     kw = dict(block_rows=br, block_k=bk, block_f=bf)
     out = {}
     for precision in PRECISIONS:
-        v, extra = t(vals), {}
+        v, extra = t(vals), {"slots": slots}
         d, xx, ww = dense, x, w
         if precision != "f32":
             d, xx, ww = (a.to(torch.bfloat16) for a in (dense, x, w))
             v = v.to(torch.bfloat16)
-            extra.update(cast_xw=torch.bfloat16, slots=slots)
+            extra["cast_xw"] = torch.bfloat16
         if precision == "int8":
             v = q
         akw = dict(kw, scales=scales) if precision == "int8" else kw
@@ -443,6 +451,40 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
             f"spmm_ell_fused_sparse_grid{tag}": ((c, v, xx, ww, b, kb), fkw),
         })
     return out
+
+
+def fused_split(torch, kernel, args, kw, real, full_ms: float) -> dict:
+    """A fused kernel's time (``full_ms``) split three ways: the zero fill
+    of its output (``torch.zeros`` alone), the product (the same launch
+    with one slot left in each chunk, so every tile is formed and almost
+    nothing is scattered, less the fill) and the scatter (the rest).
+
+    Beside them, the scatter's floor in device memory: ``runs``, the runs
+    of one output row's slots in a chunk of the slot lists, each of which
+    reads and writes the 32-byte sectors of the row's ``real[1]`` columns
+    once; the zero fill's bytes; and the decode's, the slot ids read once
+    and one 32-byte sector each of ``cols`` and ``vals`` per slot (a
+    group's slots lie far apart in the table); all over the HBM rate."""
+    group, start, ids = kw["slots"]
+    one = (group, torch.arange(group.shape[0] + 1, dtype=torch.int32,
+                               device=group.device), ids[start[:-1].long()])
+    r, f_out = args[0].shape[0], args[3].shape[1]
+    fill = device_ms(torch, lambda: torch.zeros(r, f_out, device=args[0].device),
+                     REPS)
+    tiles = device_ms(torch, lambda: kernel(*args, **dict(kw, slots=one)),
+                      REPS)
+    rows = ids.long() // args[0].shape[1]
+    chunk = torch.repeat_interleave(
+        torch.arange(group.shape[0], device=ids.device), start.diff())
+    runs = int(rows.numel() > 0) + int(
+        ((rows[1:] != rows[:-1]) | (chunk[1:] != chunk[:-1])).sum())
+    touched = 32 * -(-4 * real[1] // 32)
+    return {"zero_fill_ms": fill, "product_ms": tiles - fill,
+            "scatter_ms": full_ms - tiles, "runs": runs,
+            "scatter_floor_ms": 2 * runs * touched / HBM_BYTES_PER_S * 1e3,
+            "zero_fill_floor_ms": 4 * r * f_out / HBM_BYTES_PER_S * 1e3,
+            "decode_floor_ms": (4 + 2 * 32) * ids.numel() / HBM_BYTES_PER_S
+            * 1e3}
 
 
 def phase_kernels(torch, np, fv, cases, dev) -> dict:
@@ -493,6 +535,12 @@ def phase_kernels(torch, np, fv, cases, dev) -> dict:
                 library_ms=device_ms(torch, lib, REPS),
                 library_call=lib_what,
             )
+            if not is_aggregation(name):
+                cell["split"] = fused_split(torch, kernel, args, kw, real,
+                                            cell["ms"])
+                print(f"phase 2: {key} layer {layer} split: " + " ".join(
+                    f"{k}={v}" if isinstance(v, int) else f"{k}={v:.4f}"
+                    for k, v in cell["split"].items()))
             entry["max_abs_err"] = max(entry["max_abs_err"], got["err"])
             entry["max_rel_err"] = max(entry["max_rel_err"], got["rel"])
             entry["max_flip_share"] = max(entry["max_flip_share"],
@@ -738,6 +786,9 @@ def run(args) -> int:
             line["launches"] = quant["launches"]["int8"][name]
             line.update(summary(name))
         lines.append(line)
+    print(json.dumps({"fused_split": {
+        key: [cell["split"] for cell in kernels[key]["per_layer"]]
+        for key in KEYS if not is_aggregation(split_key(key)[0])}}))
     merged = {key: {**main[key], **quant[key]}
               for key in ("forward_ms", "device_busy_ms", "device_idle_share")}
     print(json.dumps({"kernels": lines, "dataset": args.dataset, **merged,

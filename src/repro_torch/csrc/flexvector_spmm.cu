@@ -16,11 +16,12 @@
 // synchronise and returns cudaGetLastError() (or cudaErrorInvalidValue for
 // an argument it does not take); the Python wrappers in
 // repro_torch/kernels/flexvector_spmm.py check shapes, dtypes and padding,
-// allocate the outputs and raise on a non-zero result.  All sums are f32
-// FMA on the CUDA cores (no TF32, no tensor cores); a bf16 or int8 operand
-// is widened to f32 on load, an int8 value as float(q) * scale, so that
-// each term is (float(q) * scale) * float(d) like the TPU kernels'
-// a_blk * scale before their f32 dot.
+// allocate the outputs and raise on a non-zero result.  All sums are f32:
+// f32 FMA on the CUDA cores (no TF32), except the fused layer's bf16 X W
+// tile, which the tensor cores sum in f32; a bf16 or int8 operand is
+// widened to f32 on load, an int8 value as float(q) * scale, so that each
+// term is (float(q) * scale) * float(d) like the TPU kernels' a_blk *
+// scale before their f32 dot.
 //
 // Aggregation (dense grid / sparse grid): out[r,:] = sum_t vals[r,t] *
 // dense[cols[r,t],:].  The TPU kernels expand a one-hot (BR, BK) block per
@@ -51,48 +52,57 @@
 // k-tile is listed.  No work is spent on the schedule at launch time.
 //
 // Fused layer (dense grid / sparse grid): out = A . (X W + b) with rows
-// >= k_real of X W + b taken as zero.  The TPU keeps the whole (R, BF)
-// output slab in VMEM; that does not fit a CTA's shared memory, so the
-// sum is re-associated per row: out[r,:] = (sum_t v_t X[c_t,:]) W +
-// (sum_t v_t) b.  One CTA per (64 sub-rows, 128 output columns) streams
-// F_in in chunks of 32: it gathers the chunk of sum_t v_t X[c_t,:] into
-// shared memory, loads the matching (32, 128) slice of W, and accumulates
-// an 8x4 register tile per thread.  X W + b never goes to device memory.
-// Cost: 2 R F_in F_out FLOPs for the product plus 2 nnz F_in for the
-// gather (about 3.3 GFLOP for layer 1 at PubMed's 25,984 x 6 ELL, 500
-// inputs and 128 padded outputs); bytes: the ELL table, the referenced
-// rows of X (re-read from L2 once per output-column tile), W and the
-// output.  Bound: operations on the f32 CUDA cores at these shapes.
-// k_real masking cannot change the output for ELL tables the
-// preprocessing builds (their columns are always < K); it is kept so the
-// contract matches the TPU kernel.  The sparse variant loads kb_ids (-1 =
-// no-op step) into a shared-memory bitmap and counts only slots whose
-// k-tile is listed.
+// >= k_real of X W + b taken as zero, X W + b never written to device
+// memory.  The TPU kernel keeps the whole (R, BF) output slab in VMEM
+// across its k sweep; a CTA's shared memory holds about 450 f32 rows of
+// it, so the order of sums is turned around.  One CTA per (chunk of a
+// 64-row column group's slots, 128 output columns) forms that group's
+// (64, 128) tile of X W + b once in shared memory and scatters it through
+// the ELL slots whose column lies in its 64 rows, adding v * XW[c] into a
+// zeroed f32 output with atomics (they take the place of the TPU's
+// resident output slab).  The slot lists are the ELL table transposed by
+// column group, built once per graph on the host (column_slots in the
+// Python wrapper); a group holding more than 4x the mean is cut into
+// chunks, one per CTA, each recomputing the tile, so that a hub column's
+// group (437 K of Reddit's 24 M slots, against a mean of 6.6 K) does not
+// leave one CTA walking it while the card idles.  The sparse variant
+// loads kb_ids (-1 = no-op step) into a shared-memory bitmap, skips a
+// group none of whose k-tiles is listed and counts only listed slots.
 //
-// Fused layer under bf16/int8 (vtype 1, 2): the TPU kernel rounds each row
-// of X W + b to bf16 (cast_xw) before it aggregates, and re-association
-// cannot reproduce that rounding.  So these kernels keep the TPU kernel's
-// own order: one CTA per (64 rows of X, 128 output columns) forms that
-// tile of X W + b once in shared memory (bf16 inputs widened to f32, f32
-// FMA, + b, rows >= k_real zeroed, rounded to bf16) and then walks the ELL
-// slots whose column lies in its 64 rows, adding v * scale * XW[c] into a
-// zeroed f32 output with atomicAdd (the atomics take the place of the TPU's
-// VMEM-resident output slab).  The slot list per 64-row group is the ELL
-// table transposed by column, built once per graph on the host
-// (column_slots in the Python wrapper) and cut into chunks of at most 4x
-// the mean per group, one chunk per CTA: a hub column's group (437 K of
-// Reddit's 24 M slots, against a mean of 6.6 K) would otherwise leave one
-// CTA walking it while the card idles.  A chunk recomputes its group's
-// tile.  XW never reaches device memory.
+// One kernel for every storage type, templated over the values (and so
+// the type of x / w):
+//   * the tile: X and W stream through a three-stage ring of 32-deep
+//     chunks in shared memory with cp.async (16-byte copies, zero-filled
+//     past the edges; rows padded by 16 bytes), so the next chunks load
+//     while this one is multiplied.  bf16 x / w (bf16 and int8 values):
+//     mma.sync m16n8k16 bf16 products with f32 accumulation on the tensor
+//     cores, fed by ldmatrix (eight warps, each a 32 x 32 sub-tile).  bf16
+//     x bf16 products are exact in f32, so only the order of the f32 sums
+//     differs from a library matmul.  f32 x / w: f32 FMA on the CUDA cores
+//     (each thread an 8 x 4 register tile), since TF32 would round the
+//     inputs to 10 bits (about 7e-4 of the output scale over 500-602
+//     terms).  The epilogue adds b, zeroes rows >= k_real and, for bf16 x
+//     / w, rounds to bf16 (the TPU kernel's cast_xw); the f32 tile is kept
+//     as it is.
+//   * the scatter: each lane decodes one slot of the chunk (32 per warp at
+//     a time); walkers of 8, 16 or 32 lanes, a lane per 4 columns, then
+//     walk the slots one by one.  A walker spans only the tile's live
+//     columns (up to its last nonzero one: 64 of 128 at a 64-wide layer,
+//     41 at Reddit's output layer), so a warp walks 1, 2 or 4 slots at a
+//     time.  Slots are in flat order, so the slots of one output row are
+//     consecutive: their terms are summed in registers and the row takes
+//     one 16-byte vector reduction per lane.  A lane whose four sums are
+//     zero adds nothing, exactly: out starts at +0.
 // Cost: 2 K F_in F_out FLOPs (the unfused combination's count; a group
-// with no slot, or no listed k-tile under the sparse variant, is skipped;
-// each extra chunk of a hub group adds one tile)
-// plus an atomic add per output column for each run of a row's slots in
-// a group, four columns to a 16-byte vector atomic.  The atomics bound
-// it at GCN widths: the product is small beside R tau F_out updates.  Order of sums: the
-// product's f32 sums run in another order than a library matmul, so an XW
-// element near a bf16 rounding boundary can round the other way (one bf16
-// ulp), and the atomics add the slots of a row in run-dependent order.
+// with no slot, or no listed k-tile, is skipped; each extra chunk of a hub
+// group adds one tile) plus the scatter: one read-modify-write of the
+// touched part of an output row for each run of a row's slots in a group.
+// At GCN widths the scatter bounds it (the output is far larger than the
+// L2 at Reddit, so each run reads and writes its lines in device memory).
+// Order of sums: the tile's f32 sums run in another order than a library
+// matmul (under bf16 an element near a rounding boundary can round the
+// other way, one bf16 ulp), and the atomics add the terms of an output row
+// in run-dependent order, at every precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,28 +117,18 @@ constexpr int kWarps = kThreads / 32;
 // Aggregation: columns per lane per pass (a warp covers 32 * kAggCols).
 constexpr int kAggCols = 4;
 
-// Fused-kernel tiling: kTM sub-rows x kTN output columns per CTA, F_in
-// streamed in chunks of kKC.  Each thread owns an (kTM / kWarps) x
-// (kTN / 32) register tile: rows ty + 8 i, columns tx + 32 q.
-constexpr int kTM = 64;
-constexpr int kTN = 128;
-constexpr int kKC = 32;
-constexpr int kRowsPerThread = kTM / kWarps;  // 8
-constexpr int kColsPerThread = kTN / 32;      // 4
-constexpr int kFusedStaticSmem =
-    (kTM * kKC + kKC * kTN + kTM) * (int)sizeof(float);
 constexpr int kDefaultSmemLimit = 48 * 1024;
 
-// bf16/int8 fused tiling: kXwRows rows of X W + b (XW_TILE_ROWS in the
-// Python wrapper) x kXwCols output columns per CTA, F_in streamed in
-// chunks of kXwChunk; thread (warp ty, lane tx) owns rows ty + 8 i and
-// columns tx + 32 q of the tile, as in ell_fused_kernel.
+// Fused tiling: a CTA forms kXwRows rows of X W + b (XW_TILE_ROWS in the
+// Python wrapper) x kXwCols output columns, streaming F_in through a ring
+// of kStages chunks kXwDepth deep.  The f32 product gives thread (warp ty,
+// lane tx) rows ty + 8 i and columns tx + 32 q of the tile.
 constexpr int kXwRows = 64;
 constexpr int kXwCols = 128;
-constexpr int kXwChunk = 32;
-constexpr int kXwStaticSmem =
-    (kXwRows * kXwChunk + kXwChunk * kXwCols) * (int)sizeof(float) +
-    kXwRows * kXwCols * (int)sizeof(__nv_bfloat16) + (int)sizeof(int);
+constexpr int kXwDepth = 32;
+constexpr int kStages = 3;
+constexpr int kRowsPerThread = kXwRows / kWarps;  // 8
+constexpr int kColsPerThread = kXwCols / 32;      // 4
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -297,142 +297,305 @@ __global__ void __launch_bounds__(kThreads) ell_aggregate_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Fused layer: dense grid (kSched = false) and sparse grid (kSched = true)
+// Fused layer: dense grid (kSched = false) and sparse grid (kSched = true),
+// one kernel for f32, bf16 and int8 values
 // ---------------------------------------------------------------------------
 
-template <bool kSched>
-__global__ void __launch_bounds__(kThreads) ell_fused_kernel(
-    const int* __restrict__ cols, const float* __restrict__ vals,
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, float* __restrict__ out, int R, int tau,
-    int K, int F_in, int F_out, int k_real, int block_k,
-    const int* __restrict__ kb_ids, int n_steps, int n_kb) {
-  __shared__ float gs[kTM][kKC];   // chunk of sum_t v_t X[c_t, :]
-  __shared__ float ws[kKC][kTN];   // chunk of W
-  __shared__ float vsum[kTM];      // sum_t v_t: the weight of the bias
-  extern __shared__ unsigned char dyn[];
-  int* cs = reinterpret_cast<int*>(dyn);          // (kTM, tau), -1 = skip
-  float* vs = reinterpret_cast<float*>(cs + kTM * tau);
-  unsigned* bitmap = reinterpret_cast<unsigned*>(vs + kTM * tau);
+// Shared memory of the fused kernel for x / w of type T: the ring of
+// kStages (X chunk, W chunk) pairs, which the (kXwRows, kXwCols) tile of
+// X W + b reuses once the product is done.  Rows are padded by 16 bytes so
+// that ldmatrix's eight row addresses fall in distinct banks.
+template <typename T>
+struct FusedSmem {
+  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per copy
+  static constexpr int kXPitch = kXwDepth + kVec;
+  static constexpr int kWPitch = kXwCols + kVec;
+  static constexpr int kTilePitch = kXwCols + kVec;
+  static constexpr int kStageElems = kXwRows * kXPitch + kXwDepth * kWPitch;
+  static constexpr int kRingBytes = kStages * kStageElems * (int)sizeof(T);
+  static constexpr int kTileBytes = kXwRows * kTilePitch * (int)sizeof(T);
+  static constexpr int kBytes =
+      kRingBytes > kTileBytes ? kRingBytes : kTileBytes;
+};
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy of the first `bytes` (0-16) of src to dst; the
+// rest of dst is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's copy groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// Chunk k0 of X (rows row0.., kXwDepth columns) and of W (kXwDepth rows,
+// columns n0..) into one stage of the ring.  Rows of x are F_in long and
+// rows of w ldw long, both 16-byte aligned (the wrapper sees to it).
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* xs, T* ws,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ w, int row0,
+                                           int K, int F_in, int n0, int F_out,
+                                           int ldw, int k0) {
+  using S = FusedSmem<T>;
+  constexpr int kXSegs = kXwDepth / S::kVec;  // 16-byte copies per X row
+  constexpr int kWSegs = kXwCols / S::kVec;   // per W row
+  static_assert(kXwRows * kXSegs % kThreads == 0 &&
+                    kXwDepth * kWSegs % kThreads == 0,
+                "every thread makes the same number of copies");
+#pragma unroll
+  for (int it = 0; it < kXwRows * kXSegs / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int rr = i / kXSegs;
+    const int j = (i % kXSegs) * S::kVec;
+    const int row = row0 + rr;
+    const int kk = k0 + j;
+    const bool in = row < K && kk < F_in;
+    cp_async16(xs + rr * S::kXPitch + j,
+               in ? x + (int64_t)row * F_in + kk : x,
+               in ? min(S::kVec, F_in - kk) * (int)sizeof(T) : 0);
+  }
+#pragma unroll
+  for (int it = 0; it < kXwDepth * kWSegs / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int j = i / kWSegs;
+    const int n = (i % kWSegs) * S::kVec;
+    const int kj = k0 + j;
+    const int col = n0 + n;
+    const bool in = kj < F_in && col < F_out;
+    cp_async16(ws + j * S::kWPitch + n,
+               in ? w + (int64_t)kj * ldw + col : w,
+               in ? min(S::kVec, F_out - col) * (int)sizeof(T) : 0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stream F_in through the ring: chunk kc + kStages - 1 is loading while
+// mul(xs, ws) multiplies chunk kc.  Ends with every copy landed and a
+// barrier, so the ring is free for the tile.
+template <typename T, typename Mul>
+__device__ __forceinline__ void stream_chunks(T* smem, const T* __restrict__ x,
+                                              const T* __restrict__ w,
+                                              int row0, int K, int F_in,
+                                              int n0, int F_out, int ldw,
+                                              Mul mul) {
+  using S = FusedSmem<T>;
+  const int n_k = (F_in + kXwDepth - 1) / kXwDepth;
+  auto load = [&](int kc) {
+    T* st = smem + (kc % kStages) * S::kStageElems;
+    load_chunk(st, st + kXwRows * S::kXPitch, x, w, row0, K, F_in, n0, F_out,
+               ldw, kc * kXwDepth);
+  };
+#pragma unroll
+  for (int kc = 0; kc < kStages - 1; ++kc) {
+    if (kc < n_k) load(kc);
+    cp_async_commit();  // one group per chunk, empty past the end
+  }
+  for (int kc = 0; kc < n_k; ++kc) {
+    cp_async_wait<kStages - 2>();  // chunk kc has landed
+    __syncthreads();               // ... for every thread; kc - 1 is free
+    if (kc + kStages - 1 < n_k) load(kc + kStages - 1);
+    cp_async_commit();
+    const T* xs = smem + (kc % kStages) * S::kStageElems;
+    mul(xs, xs + kXwRows * S::kXPitch);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The tile of X W + b into shared memory: the product through the ring,
+// then + b, rows >= k_real and columns >= F_out zeroed, stored as T (bf16:
+// rounded).  Ends with a barrier: the tile is ready for every thread.
+//
+// bf16: warp (wm, wn) = (warp % 2, warp / 2) owns rows 32 wm.. and columns
+// 32 wn.. of the tile: two m16 x four n8 mma tiles per 16-deep step.
+__device__ __forceinline__ void form_tile(
+    __nv_bfloat16* smem, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
+    int row0, int n0, int K, int F_in, int F_out, int ldw, int k_real) {
+  using T = __nv_bfloat16;
+  using S = FusedSmem<T>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp & 1;
+  const int wn = warp >> 1;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  stream_chunks(smem, x, w, row0, K, F_in, n0, F_out, ldw,
+                [&](const T* xs, const T* ws) {
+#pragma unroll
+    for (int kk = 0; kk < kXwDepth; kk += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], xs + (32 * wm + 16 * mt + (lane & 15)) * S::kXPitch +
+                               kk + (lane >> 4) * 8);
+      unsigned bq[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(bq[np], ws + (kk + (lane & 15)) * S::kWPitch +
+                                      32 * wn + 16 * np + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], a[mt], bq[nt >> 1][2 * (nt & 1)],
+                   bq[nt >> 1][2 * (nt & 1) + 1]);
+    }
+  });
+
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lr = 32 * wm + 16 * mt + g + 8 * h;
+        const int lc = 32 * wn + 8 * nt + 2 * tg;
+        const bool row_in = row0 + lr < k_real;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + lc + e;
+          v[e] = (row_in && col < F_out) ? acc[mt][nt][2 * h + e] + b[col]
+                                         : 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(smem + lr * S::kTilePitch + lc) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+  __syncthreads();
+}
+
+// f32: f32 FMA on the CUDA cores, thread (warp ty, lane tx) owning rows
+// ty + 8 i and columns tx + 32 q; X is read four columns at a time.
+__device__ __forceinline__ void form_tile(
+    float* smem, const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ b, int row0, int n0, int K, int F_in,
+    int F_out, int ldw, int k_real) {
+  using S = FusedSmem<float>;
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
-  const int64_t r0 = (int64_t)blockIdx.x * kTM;
-  const int n0 = blockIdx.y * kTN;
-
-  if (kSched) {
-    zero_bitmap(bitmap, (n_kb + 31) >> 5);
-    __syncthreads();
-    for (int s = threadIdx.x; s < n_steps; s += kThreads) {
-      const int kb = kb_ids[s];
-      if (kb >= 0 && kb < n_kb) atomicOr(&bitmap[kb >> 5], 1u << (kb & 31));
-    }
-    __syncthreads();
-  }
-
-  // Stage the tile's ELL slots, keeping only those that count.
-  for (int i = threadIdx.x; i < kTM * tau; i += kThreads) {
-    int c = -1;
-    float v = 0.f;
-    if (r0 + i / tau < R) {
-      c = cols[r0 * tau + i];
-      v = vals[r0 * tau + i];
-      bool keep = c >= 0 && c < K && c < k_real;
-      if (kSched && keep) keep = tile_listed(bitmap, c / block_k);
-      if (!keep) {
-        c = -1;
-        v = 0.f;
-      }
-    }
-    cs[i] = c;
-    vs[i] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kTM) {
-    float s = 0.f;
-    for (int t = 0; t < tau; ++t) s += vs[threadIdx.x * tau + t];
-    vsum[threadIdx.x] = s;
-  }
-  __syncthreads();
-
   float acc[kRowsPerThread][kColsPerThread];
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i)
 #pragma unroll
     for (int q = 0; q < kColsPerThread; ++q) acc[i][q] = 0.f;
 
-  for (int k0 = 0; k0 < F_in; k0 += kKC) {
-    const int kk = k0 + tx;
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int lr = ty + kWarps * i;
-      float g = 0.f;
-      if (kk < F_in) {
-        for (int t = 0; t < tau; ++t) {
-          const int c = cs[lr * tau + t];  // warp-uniform
-          if (c >= 0) g = fmaf(vs[lr * tau + t], x[(int64_t)c * F_in + kk], g);
-        }
-      }
-      gs[lr][tx] = g;
-    }
-    for (int i = threadIdx.x; i < kKC * kTN; i += kThreads) {
-      const int j = i / kTN;
-      const int n = i % kTN;
-      const int kj = k0 + j;
-      const int col = n0 + n;
-      ws[j][n] = (kj < F_in && col < F_out) ? w[(int64_t)kj * F_out + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kKC; ++j) {
-      float a[kRowsPerThread];
-      float bw[kColsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) a[i] = gs[ty + kWarps * i][j];
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) bw[q] = ws[j][tx + 32 * q];
+  stream_chunks(smem, x, w, row0, K, F_in, n0, F_out, ldw,
+                [&](const float* xs, const float* ws) {
+#pragma unroll 2
+    for (int j = 0; j < kXwDepth; j += 4) {
+      float4 a[kRowsPerThread];
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            xs + (ty + kWarps * i) * S::kXPitch + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float bw[kColsPerThread];
 #pragma unroll
         for (int q = 0; q < kColsPerThread; ++q)
-          acc[i][q] = fmaf(a[i], bw[q], acc[i][q]);
+          bw[q] = ws[(j + jj) * S::kWPitch + tx + 32 * q];
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const float av = jj == 0 ? a[i].x : jj == 1 ? a[i].y
+                         : jj == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int q = 0; q < kColsPerThread; ++q)
+            acc[i][q] = fmaf(av, bw[q], acc[i][q]);
+        }
+      }
     }
-    __syncthreads();
-  }
+  });
 
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int lr = ty + kWarps * i;
-    const int64_t r = r0 + lr;
-    if (r >= R) continue;
 #pragma unroll
     for (int q = 0; q < kColsPerThread; ++q) {
       const int col = n0 + tx + 32 * q;
-      if (col < F_out) out[r * F_out + col] = fmaf(vsum[lr], b[col], acc[i][q]);
+      smem[lr * S::kTilePitch + tx + 32 * q] =
+          (row0 + lr < k_real && col < F_out) ? acc[i][q] + b[col] : 0.f;
     }
   }
+  __syncthreads();
 }
 
-// ---------------------------------------------------------------------------
-// Fused layer under bf16 / int8: X W + b formed per 64-row tile, rounded to
-// bf16, then scattered through the slots of its columns with atomics.
-// ---------------------------------------------------------------------------
+// Four consecutive tile elements as f32.
+__device__ __forceinline__ float4 tile_quad(const float* t) {
+  return *reinterpret_cast<const float4*>(t);
+}
+__device__ __forceinline__ float4 tile_quad(const __nv_bfloat16* t) {
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(t);
+  const float2 lo = __bfloat1622float2(pair[0]);
+  const float2 hi = __bfloat1622float2(pair[1]);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 template <typename V, bool kSched>
-__global__ void __launch_bounds__(kThreads) ell_fused_xw_kernel(
+__global__ void __launch_bounds__(kThreads, 2) ell_fused_xw_kernel(
     const int* __restrict__ cols, const V* __restrict__ vals,
-    const float* __restrict__ scales, const __nv_bfloat16* __restrict__ x,
-    const __nv_bfloat16* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ scales, const Dense<V>* __restrict__ x,
+    const Dense<V>* __restrict__ w, const float* __restrict__ b,
     float* __restrict__ out, const int* __restrict__ slot_group,
     const int* __restrict__ slot_start, const int* __restrict__ slot_ids,
-    int tau, int K, int F_in, int F_out, int k_real, int block_rows,
+    int tau, int K, int F_in, int F_out, int ldw, int k_real, int block_rows,
     int block_k, const int* __restrict__ kb_ids, int n_steps, int n_kb,
     bool vec) {
-  __shared__ float xs[kXwRows][kXwChunk];          // chunk of X
-  __shared__ float ws[kXwChunk][kXwCols];          // chunk of W
-  __shared__ __nv_bfloat16 xw[kXwRows][kXwCols];   // round(X W + b)
+  using T = Dense<V>;
+  using S = FusedSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);  // the ring, then the tile
+  unsigned* bitmap = reinterpret_cast<unsigned*>(smem_raw + S::kBytes);
   __shared__ int any_listed;
-  extern __shared__ unsigned bitmap[];
+  __shared__ int live_cols;
 
   const int tx = threadIdx.x & 31;
   const int ty = threadIdx.x >> 5;
@@ -462,73 +625,41 @@ __global__ void __launch_bounds__(kThreads) ell_fused_xw_kernel(
     if (!any_listed) return;  // none of the group's k-tiles is scheduled
   }
 
-  float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-    for (int q = 0; q < kColsPerThread; ++q) acc[i][q] = 0.f;
+  if (threadIdx.x == 0) live_cols = 0;
+  form_tile(smem, x, w, b, row0, n0, K, F_in, F_out, ldw, k_real);
+  const T* tile = smem;
 
-  for (int k0 = 0; k0 < F_in; k0 += kXwChunk) {
-    for (int i = threadIdx.x; i < kXwRows * kXwChunk; i += kThreads) {
-      const int rr = i / kXwChunk;
-      const int j = i % kXwChunk;
-      const int row = row0 + rr;
-      const int kk = k0 + j;
-      xs[rr][j] = (row < K && kk < F_in)
-                      ? __bfloat162float(x[(int64_t)row * F_in + kk])
-                      : 0.f;
-    }
-    for (int i = threadIdx.x; i < kXwChunk * kXwCols; i += kThreads) {
-      const int j = i / kXwCols;
-      const int n = i % kXwCols;
-      const int kj = k0 + j;
-      const int col = n0 + n;
-      ws[j][n] = (kj < F_in && col < F_out)
-                     ? __bfloat162float(w[(int64_t)kj * F_out + col])
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kXwChunk; ++j) {
-      float a[kRowsPerThread];
-      float bw[kColsPerThread];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i) a[i] = xs[ty + kWarps * i][j];
-#pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) bw[q] = ws[j][tx + 32 * q];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int q = 0; q < kColsPerThread; ++q)
-          acc[i][q] = fmaf(a[i], bw[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int lr = ty + kWarps * i;
-#pragma unroll
-    for (int q = 0; q < kColsPerThread; ++q) {
-      const int col = n0 + tx + 32 * q;
-      const float v =
-          (row0 + lr < k_real && col < F_out) ? acc[i][q] + b[col] : 0.f;
-      xw[lr][tx + 32 * q] = __float2bfloat16_rn(v);
-    }
+  // The tile's live columns: 1 + the last column holding a nonzero value.
+  {
+    const int c = threadIdx.x % kXwCols;
+    bool nz = false;
+    for (int rr = threadIdx.x / kXwCols; rr < kXwRows;
+         rr += kThreads / kXwCols)
+      nz |= to_f32(tile[rr * S::kTilePitch + c]) != 0.f;
+    if (nz) atomicMax(&live_cols, c + 1);
   }
   __syncthreads();
+  if (live_cols == 0) return;  // every term is zero: nothing to add
 
-  // Each lane decodes one slot of the group (32 per warp at a time); the
-  // warp then walks the slots one by one, a lane per 4 columns of XW.
-  // Slots are in flat order, so the slots of one output row are
-  // consecutive: their terms are summed in registers and the row takes
-  // one atomic per lane (one 16-byte vector atomic when `vec`: F_out a
-  // multiple of 4 and out 16-byte aligned).  The L2's rate for reduced
-  // bytes bounds this loop, so every add that can be left out is.
-  const int cl = 4 * tx;  // the lane's first column in the tile
+  // The scatter.  A walker of `lanes` lanes (a lane per 4 columns) covers
+  // the live columns: a whole warp for more than 64, a half-warp for
+  // 33-64, a quarter for 1-32, so that a warp walks 1, 2 or 4 slots at a
+  // time.  Each lane decodes one slot of the chunk (32 per warp at a
+  // time), and walker `wk` takes slots lanes * wk.. of the 32.  Slots are
+  // in flat order, so the slots of one output row are consecutive: their
+  // terms are summed in registers and the row takes one add per lane at
+  // the end of its run (one 16-byte vector reduction, REDG.ADD.F32x4, when
+  // `vec`: F_out a multiple of 4 and out 16-byte aligned).  Columns past
+  // the live ones hold exact zeros and a lane whose four sums are zero
+  // adds nothing: out starts at +0, and x + 0 is x for every x but -0,
+  // which a sum from +0 never reaches.
+  const int lanes = live_cols <= 32 ? 8 : live_cols <= 64 ? 16 : 32;
+  const int wk = tx / lanes;
+  const int cl = 4 * (tx % lanes);  // the lane's first column in the tile
   const int col = n0 + cl;
   for (int base = s_begin + ty * 32; base < s_end; base += kWarps * 32) {
     const int s = base + tx;
-    int c_own = -1;
+    int c_own = -1;  // column in the tile, -1: the slot adds nothing
     int r_own = -1;
     float v_own = 0.f;
     if (s < s_end) {
@@ -543,26 +674,24 @@ __global__ void __launch_bounds__(kThreads) ell_fused_xw_kernel(
         if (scales != nullptr) v_own *= scales[r_own / block_rows];
       }
     }
-    const int n_s = min(32, s_end - base);
+    // the slot ends its row's run: the next slot (of the same walker) has
+    // another row
+    const int r_after = __shfl_down_sync(kFullMask, r_own, 1);
+    const bool ends = (tx % lanes) == lanes - 1 || r_after != r_own;
+    const int meta = c_own < 0 ? -1 : c_own | (int)ends << 6;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j = 0; j < n_s; ++j) {
-      const int c = __shfl_sync(kFullMask, c_own, j);
-      const float v = __shfl_sync(kFullMask, v_own, j);
-      const int r = __shfl_sync(kFullMask, r_own, j);
-      const int r_next = __shfl_sync(kFullMask, r_own, (j + 1) & 31);
-      if (c < 0) continue;  // warp-uniform
-      const __nv_bfloat162* pair =
-          reinterpret_cast<const __nv_bfloat162*>(&xw[c][cl]);
-      const float2 lo = __bfloat1622float2(pair[0]);
-      const float2 hi = __bfloat1622float2(pair[1]);
-      acc.x = fmaf(v, lo.x, acc.x);
-      acc.y = fmaf(v, lo.y, acc.y);
-      acc.z = fmaf(v, hi.x, acc.z);
-      acc.w = fmaf(v, hi.y, acc.w);
-      if (j + 1 < n_s && r_next == r) continue;  // the row goes on
-      // A lane whose four sums are zero (the columns padding W and b to
-      // the f-tile, above all) adds nothing: out starts at +0 and x + 0
-      // is x for every x but -0, which a sum from +0 never reaches.
+    for (int j = 0; j < lanes; ++j) {
+      const int src = wk * lanes + j;
+      const int m = __shfl_sync(kFullMask, meta, src);
+      const float v = __shfl_sync(kFullMask, v_own, src);
+      const int r = __shfl_sync(kFullMask, r_own, src);
+      if (m < 0) continue;  // uniform across the walker
+      const float4 t = tile_quad(tile + (m & 63) * S::kTilePitch + cl);
+      acc.x = fmaf(v, t.x, acc.x);
+      acc.y = fmaf(v, t.y, acc.y);
+      acc.z = fmaf(v, t.z, acc.z);
+      acc.w = fmaf(v, t.w, acc.w);
+      if (!(m >> 6)) continue;  // the row goes on
       if (acc.x != 0.f || acc.y != 0.f || acc.z != 0.f || acc.w != 0.f) {
         float* orow = out + (int64_t)r * F_out + col;
         if (vec) {
@@ -636,45 +765,35 @@ int aggregate(int vtype, const int* cols, const void* vals,
   }
 }
 
-template <bool kSched>
-int launch_fused(const int* cols, const float* vals, const float* x,
-                 const float* w, const float* b, float* out, int R, int tau,
-                 int K, int F_in, int F_out, int k_real, int block_k,
-                 const int* kb_ids, int n_steps, cudaStream_t stream) {
-  const int n_kb = K / block_k;
-  const int dyn = kTM * tau * 8 + (kSched ? bitmap_bytes(n_kb) : 0);
-  cudaError_t e = allow_smem(ell_fused_kernel<kSched>, kFusedStaticSmem, dyn);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((R + kTM - 1) / kTM, (F_out + kTN - 1) / kTN);
-  ell_fused_kernel<kSched><<<grid, kThreads, dyn, stream>>>(
-      cols, vals, x, w, b, out, R, tau, K, F_in, F_out, k_real, block_k,
-      kb_ids, n_steps, n_kb);
-  return (int)cudaGetLastError();
-}
-
 template <typename V, bool kSched>
 int launch_fused_xw(const int* cols, const void* vals, const float* scales,
                     const void* x, const void* w, const float* b, float* out,
                     const int* slot_group, const int* slot_start,
                     const int* slot_ids, int n_chunks, int tau, int K,
-                    int F_in, int F_out, int k_real, int block_rows,
+                    int F_in, int F_out, int ldw, int k_real, int block_rows,
                     int block_k, const int* kb_ids, int n_steps,
                     cudaStream_t stream) {
+  using T = Dense<V>;
+  constexpr int kVec = FusedSmem<T>::kVec;
+  // cp.async copies 16 aligned bytes: rows of x and w must start on them
+  if (F_in % kVec != 0 || ldw % kVec != 0 || ldw < F_out ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return (int)cudaSuccess;  // no slot: out stays zero
   const int n_kb = K / block_k;
-  const int dyn = kSched ? bitmap_bytes(n_kb) : 0;
+  const int dyn = FusedSmem<T>::kBytes + (kSched ? bitmap_bytes(n_kb) : 0);
   cudaError_t e =
-      allow_smem(ell_fused_xw_kernel<V, kSched>, kXwStaticSmem, dyn);
+      allow_smem(ell_fused_xw_kernel<V, kSched>, 2 * (int)sizeof(int), dyn);
   if (e != cudaSuccess) return (int)e;
   const bool vec = (F_out & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   dim3 grid(n_chunks, (F_out + kXwCols - 1) / kXwCols);
   ell_fused_xw_kernel<V, kSched><<<grid, kThreads, dyn, stream>>>(
-      cols, static_cast<const V*>(vals), scales,
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), b, out, slot_group, slot_start,
-      slot_ids, tau, K, F_in, F_out, k_real, block_rows, block_k, kb_ids,
-      n_steps, n_kb, vec);
+      cols, static_cast<const V*>(vals), scales, static_cast<const T*>(x),
+      static_cast<const T*>(w), b, out, slot_group, slot_start, slot_ids, tau,
+      K, F_in, F_out, ldw, k_real, block_rows, block_k, kb_ids, n_steps, n_kb,
+      vec);
   return (int)cudaGetLastError();
 }
 
@@ -682,29 +801,32 @@ template <bool kSched>
 int fused(int vtype, const int* cols, const void* vals, const float* scales,
           const void* x, const void* w, const float* b, float* out,
           const int* slot_group, const int* slot_start, const int* slot_ids,
-          int n_chunks, const int* kb_ids, int n_steps, int R, int tau, int K,
-          int F_in, int F_out, int k_real, int block_rows, int block_k,
-          cudaStream_t stream) {
+          int n_chunks, const int* kb_ids, int n_steps, int tau, int K,
+          int F_in, int F_out, int ldw, int k_real, int block_rows,
+          int block_k, cudaStream_t stream) {
   if ((vtype == kI8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
-  if (vtype == kF32)
-    return launch_fused<kSched>(
-        cols, static_cast<const float*>(vals), static_cast<const float*>(x),
-        static_cast<const float*>(w), b, out, R, tau, K, F_in, F_out, k_real,
-        block_k, kb_ids, n_steps, stream);
   if (n_chunks > 0 && (slot_group == nullptr || slot_start == nullptr ||
                        slot_ids == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (vtype == kBF16)
-    return launch_fused_xw<__nv_bfloat16, kSched>(
-        cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
-        n_chunks, tau, K, F_in, F_out, k_real, block_rows, block_k, kb_ids,
-        n_steps, stream);
-  if (vtype == kI8)
-    return launch_fused_xw<int8_t, kSched>(
-        cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
-        n_chunks, tau, K, F_in, F_out, k_real, block_rows, block_k, kb_ids,
-        n_steps, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (vtype) {
+    case kF32:
+      return launch_fused_xw<float, kSched>(
+          cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
+          n_chunks, tau, K, F_in, F_out, ldw, k_real, block_rows, block_k,
+          kb_ids, n_steps, stream);
+    case kBF16:
+      return launch_fused_xw<__nv_bfloat16, kSched>(
+          cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
+          n_chunks, tau, K, F_in, F_out, ldw, k_real, block_rows, block_k,
+          kb_ids, n_steps, stream);
+    case kI8:
+      return launch_fused_xw<int8_t, kSched>(
+          cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
+          n_chunks, tau, K, F_in, F_out, ldw, k_real, block_rows, block_k,
+          kb_ids, n_steps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -738,19 +860,19 @@ int fv_spmm_sparse_grid(const int* cols, const void* vals,
 }
 
 // slot_group / slot_start / slot_ids (n_chunks chunks): column_slots in
-// the Python wrapper, slots grouped by kXwRows columns (bf16 / int8 only;
-// the f32 kernel takes null pointers and 0 there).  out must be zeroed
-// for bf16 / int8.
+// the Python wrapper, slots grouped by kXwRows columns.  x is (K, F_in)
+// and w (F_in, ldw) with F_out <= ldw real columns, both with 16-byte
+// aligned rows; out (R, F_out) must be zeroed.
 int fv_fused_dense_grid(const int* cols, const void* vals, const float* scales,
                         const void* x, const void* w, const float* b,
                         float* out, const int* slot_group,
                         const int* slot_start, const int* slot_ids,
-                        int n_chunks, int R, int tau, int K, int F_in,
-                        int F_out, int k_real, int block_rows, int block_k,
+                        int n_chunks, int tau, int K, int F_in, int F_out,
+                        int ldw, int k_real, int block_rows, int block_k,
                         int vtype, void* stream) {
   return fused<false>(vtype, cols, vals, scales, x, w, b, out, slot_group,
-                      slot_start, slot_ids, n_chunks, nullptr, 0, R, tau, K,
-                      F_in, F_out, k_real, block_rows, block_k,
+                      slot_start, slot_ids, n_chunks, nullptr, 0, tau, K,
+                      F_in, F_out, ldw, k_real, block_rows, block_k,
                       (cudaStream_t)stream);
 }
 
@@ -758,13 +880,13 @@ int fv_fused_sparse_grid(const int* cols, const void* vals,
                          const float* scales, const void* x, const void* w,
                          const float* b, float* out, const int* slot_group,
                          const int* slot_start, const int* slot_ids,
-                         int n_chunks, const int* kb_ids, int n_steps, int R,
-                         int tau, int K, int F_in, int F_out, int k_real,
+                         int n_chunks, const int* kb_ids, int n_steps, int tau,
+                         int K, int F_in, int F_out, int ldw, int k_real,
                          int block_rows, int block_k, int vtype,
                          void* stream) {
   return fused<true>(vtype, cols, vals, scales, x, w, b, out, slot_group,
-                     slot_start, slot_ids, n_chunks, kb_ids, n_steps, R, tau,
-                     K, F_in, F_out, k_real, block_rows, block_k,
+                     slot_start, slot_ids, n_chunks, kb_ids, n_steps, tau, K,
+                     F_in, F_out, ldw, k_real, block_rows, block_k,
                      (cudaStream_t)stream);
 }
 

@@ -128,8 +128,10 @@ def fused_args(
 ) -> Tuple[str, tuple, dict, Tuple[int, int]]:
     """The fused kernel a resolved kernel plan launches, and its arguments:
     ``(name, args, kwargs, (r, f_out))`` with operands padded to block
-    multiples, ``name`` the :data:`fv.KERNELS` entry (``*_scaled`` for
-    int8 values) and ``(r, f_out)`` the unpadded output shape."""
+    multiples (``x`` and ``w`` through :func:`fv.pad_fused_operands`),
+    ``name`` the :data:`fv.KERNELS` entry (``*_scaled`` for int8 values), the kernel's
+    slot lists in ``kwargs["slots"]`` at every precision, and ``(r,
+    f_out)`` the unpadded output shape."""
     cols = operands.cols
     vals, scales = operands.values_for(plan.precision, plan.block_rows)
     w, b, x_cast, xw_cast = _prepare_fused_weights(plan, layer, w_block_rows)
@@ -144,20 +146,18 @@ def fused_args(
     if r_pad != r:
         cols = F.pad(cols, (0, 0, 0, r_pad - r), value=fv.PAD_COL)
         vals = F.pad(vals, (0, 0, 0, r_pad - r))
-    if k_pad != k:
-        x = F.pad(x, (0, 0, 0, k_pad - k))
+    x, w = fv.pad_fused_operands(x, w, k_pad, f_out_pad)
     if f_out_pad != f_out:
-        w = F.pad(w, (0, f_out_pad - f_out))
         b = F.pad(b, (0, f_out_pad - f_out))
-    args = tuple(t.contiguous() for t in (cols, vals, x, w, b))
+    args = (cols.contiguous(), vals.contiguous(), x, w, b.contiguous())
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
-              block_f=plan.block_f, k_real=k)
+              block_f=plan.block_f, k_real=k,
+              slots=_column_slots(operands, k_pad))
     suffix = ""
     if scales is not None:
         kw["scales"], suffix = scales, "_scaled"
     if xw_cast is not None:
         kw["cast_xw"] = xw_cast
-        kw["slots"] = _column_slots(operands, k_pad)
     if plan.effective_impl == "cuda_sparse":
         kb_ids = operands.memo(
             ("fused_k_schedule", plan.block_rows, plan.block_k),

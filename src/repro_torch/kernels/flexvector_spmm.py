@@ -76,10 +76,15 @@ PRECISION_LAUNCHES: Dict[str, int] = {
                       else ("f32", "bf16"))
 }
 
-#: Rows of ``X W + b`` one CTA of the bf16/int8 fused kernels forms; the
-#: fused slot lists (:func:`column_slots`) group ELL slots by it.  Must
-#: equal ``kXwRows`` in ``csrc/flexvector_spmm.cu``.
+#: Rows of ``X W + b`` one CTA of the fused kernels forms; the fused slot
+#: lists (:func:`column_slots`) group ELL slots by it.  Must equal
+#: ``kXwRows`` in ``csrc/flexvector_spmm.cu``.
 XW_TILE_ROWS = 64
+
+#: The fused kernels copy rows of ``x`` and ``w`` into shared memory in
+#: 16-byte pieces, so each row must start on a 16-byte boundary.
+_ROW_ALIGN_BYTES = 16
+
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, PRECISION_LAUNCHES):
@@ -97,11 +102,11 @@ _SIGNATURES = {
     # R, tau, K, F, BR, BK, BF, vtype, stream
     "fv_spmm_sparse_grid": [_P] * 6 + [_I] * 8 + [_P],
     # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
-    # n_chunks, R, tau, K, F_in, F_out, k_real, BR, BK, vtype, stream
+    # n_chunks, tau, K, F_in, F_out, ldw, k_real, BR, BK, vtype, stream
     "fv_fused_dense_grid": [_P] * 10 + [_I] * 10 + [_P],
     # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
     # n_chunks, kb_ids, n_steps,
-    # R, tau, K, F_in, F_out, k_real, BR, BK, vtype, stream
+    # tau, K, F_in, F_out, ldw, k_real, BR, BK, vtype, stream
     "fv_fused_sparse_grid": [_P] * 10 + [_I, _P] + [_I] * 10 + [_P],
 }
 _BOUND: Optional[ctypes.CDLL] = None
@@ -302,8 +307,8 @@ def full_f32_matmul():
 
 
 def column_slots(cols, n_dense_rows: int):
-    """The ELL table transposed by column group, for the bf16/int8 fused
-    kernels: one chunk of slots per CTA.
+    """The ELL table transposed by column group, for the fused kernels: one
+    chunk of slots per CTA.
 
     Group ``g`` holds the slots whose column lies in rows ``[g * 64, (g +
     1) * 64)`` of ``X`` (:data:`XW_TILE_ROWS`, the kernel's tile height);
@@ -439,16 +444,53 @@ def spmm_ell_sparse_grid(
 # -- B3 / B3s: fused dense grid ---------------------------------------------------
 
 
-def _fused_out(vals, slots, r: int, f_out: int, dev: torch.device):
-    """The fused kernels' output and slot-list arguments: f32 values write
-    every output element (no slot lists); bf16/int8 values add into a
-    zeroed output through the caller's :func:`column_slots` tensors,
-    passed on as ``(group, start, ids, n_chunks)``."""
-    if vals.dtype == torch.float32:
-        return torch.empty(r, f_out, device=dev), (None, None, None, 0)
+def _aligned_width(n: int, dtype: torch.dtype) -> int:
+    """``n`` columns of ``dtype`` rounded up to whole 16-byte pieces."""
+    per = _ROW_ALIGN_BYTES // torch.empty(0, dtype=dtype).element_size()
+    return -(-n // per) * per
+
+
+def _zero_padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` as a contiguous (rows, cols) tensor on a 16-byte boundary: as
+    it is where it already is one, else a fresh zero-padded copy."""
+    if (tuple(t.shape) == (rows, cols) and t.is_contiguous()
+            and t.data_ptr() % _ROW_ALIGN_BYTES == 0):
+        return t
+    out = t.new_zeros(rows, cols)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def pad_fused_operands(x: torch.Tensor, w: torch.Tensor, k_rows: int = 0,
+                       f_out: int = 0):
+    """``(x, w)`` zero-padded as the fused kernels take them, in one copy
+    each and only where needed: ``x`` to at least ``k_rows`` rows, ``w`` to
+    at least ``f_out`` columns, and the ``F_in`` columns of ``x`` and rows
+    of ``w`` to whole 16-byte pieces, so that every row of ``x`` starts on
+    a 16-byte boundary.  The zero columns of ``x`` meet zero rows of ``w``
+    and add exact zeros to every sum."""
+    f_in = _aligned_width(w.shape[0], x.dtype)
+    return (_zero_padded(x, max(k_rows, x.shape[0]), f_in),
+            _zero_padded(w, f_in, max(f_out, w.shape[1])))
+
+
+def _fused_operands(x: torch.Tensor, w: torch.Tensor):
+    """``(x, w, ldw)`` as the fused kernels load them: padded by
+    :func:`pad_fused_operands` (a no-op on the dispatcher's operands),
+    with ``w``'s rows at a stride of ``ldw`` >= F_out columns, a 16-byte
+    multiple."""
+    x, w = pad_fused_operands(x, w)
+    ldw = _aligned_width(w.shape[1], w.dtype)
+    return x, _zero_padded(w, w.shape[0], ldw), ldw
+
+
+def _fused_out(slots, r: int, f_out: int, dev: torch.device):
+    """The fused kernels' zeroed output and slot-list arguments: the
+    kernels add into the output through the caller's :func:`column_slots`
+    tensors, passed on as ``(group, start, ids, n_chunks)``."""
     if slots is None:
-        raise ValueError(f"{vals.dtype} values need slots=: column_slots "
-                         "of cols, on the device")
+        raise ValueError("the fused kernels need slots=: column_slots of "
+                         "cols, on the device")
     group, start, ids = slots
     for i, t in enumerate(slots):
         _check_tensor(f"slots[{i}]", t, torch.int32, 1, dev)
@@ -499,13 +541,13 @@ def spmm_ell_fused_dense_grid(
     Rows >= ``k_real`` of ``x @ w + b`` count as zero; ``cast_xw`` rounds
     it (bf16 under bf16/int8 values).  The intermediate ``x @ w + b`` is
     never written to device memory.  ``slots`` is :func:`column_slots` of
-    ``cols`` as int32 tensors on the device, which bf16/int8 values need on
-    CUDA (the dispatcher builds it once per graph and ``K``).
+    ``cols`` as int32 tensors on the device, which the kernel needs on CUDA
+    (the dispatcher builds it once per graph and ``K``).
     """
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
                                block_f, k_real, scales, cast_xw)
     r, tau = cols.shape
-    k, f_in = x.shape
+    k = x.shape[0]
     f_out = w.shape[1]
     if scales is not None:
         scales = _block_scales(scales, r, block_rows)
@@ -513,11 +555,12 @@ def spmm_ell_fused_dense_grid(
         return spmm_ell_fused_dense_grid_plain(
             cols, vals, x, w, b, block_rows=block_rows, k_real=k_real,
             scales=scales, cast_xw=cast_xw)
-    out, slots = _fused_out(vals, slots, r, f_out, dev)
+    out, slots = _fused_out(slots, r, f_out, dev)
+    x, w, ldw = _fused_operands(x, w)
     if r and f_out:
         _launch("spmm_ell_fused_dense_grid", vals, "fv_fused_dense_grid",
-                dev, cols, vals, scales, x, w, b, out, *slots, r, tau, k,
-                f_in, f_out, k_real, block_rows, block_k)
+                dev, cols, vals, scales, x, w, b, out, *slots, tau, k,
+                x.shape[1], f_out, ldw, k_real, block_rows, block_k)
     return out
 
 
@@ -568,7 +611,7 @@ def spmm_ell_fused_sparse_grid(
     _check_tensor("kb_ids", kb_ids, torch.int32, 1, dev)
     n_steps = kb_ids.shape[0]
     r, tau = cols.shape
-    k, f_in = x.shape
+    k = x.shape[0]
     f_out = w.shape[1]
     if scales is not None:
         scales = _block_scales(scales, r, block_rows)
@@ -577,11 +620,12 @@ def spmm_ell_fused_sparse_grid(
             cols, vals, x, w, b, kb_ids, block_rows=block_rows,
             block_k=block_k, block_f=block_f, k_real=k_real, scales=scales,
             cast_xw=cast_xw)
-    out, slots = _fused_out(vals, slots, r, f_out, dev)
+    out, slots = _fused_out(slots, r, f_out, dev)
+    x, w, ldw = _fused_operands(x, w)
     if r and f_out:
         _launch("spmm_ell_fused_sparse_grid", vals, "fv_fused_sparse_grid",
                 dev, cols, vals, scales, x, w, b, out, *slots, kb_ids,
-                n_steps, r, tau, k, f_in, f_out, k_real, block_rows,
+                n_steps, tau, k, x.shape[1], f_out, ldw, k_real, block_rows,
                 block_k)
     return out
 

@@ -21,9 +21,9 @@ from repro_torch.kernels import flexvector_spmm as fv
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.gcn import GCNConfig, GCNGraph, gcn_forward
 
-# Aggregation: the same tau products, FMA contraction only.  Fused: the
-# kernel re-associates to (sum_t v X[c]) W, F_in-long dot products in
-# another f32 order.
+# Aggregation: the same tau products, FMA contraction only.  Fused: each
+# element of X W + b is an F_in-long dot product in another f32 order, and
+# the atomics add the terms of an output row in run-dependent order.
 TOL = {"spmm_ell_dense_grid": 1e-5, "spmm_ell_sparse_grid": 1e-5,
        "spmm_ell_fused_dense_grid": 1e-4, "spmm_ell_fused_sparse_grid": 1e-4}
 # bf16/int8 fused: X W + b is summed in another f32 order than the plain
@@ -89,10 +89,16 @@ def _random_case(seed, r=96, tau=5, k=64, f=40, f_in=37, br=16, bk=16, bf=8,
         k_real=k - 5)
 
 
+# Output widths per seed: 40; 136, whose first f-tile has more than 64
+# live columns (the fused scatter's whole-warp walkers) and whose second
+# has 8; 38, no multiple of 4 (the kernels' scalar paths).
+WIDTHS = {0: {}, 1: {"f": 136}, 2: {"f": 38, "bf": 2}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_cuda_kernels_match_plain_versions(cuda_device, seed):
-    c = _random_case(seed)
+    c = _random_case(seed, **WIDTHS[seed])
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -105,14 +111,18 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
         c["rb_ids"], c["kb_ids"], c["first"],
         c["cols"].shape[0] // kw["block_rows"],
         c["dense"].shape[0] // kw["block_k"]), torch.int32)
+    slots = tuple(t(a, torch.int32)
+                  for a in fv.column_slots(c["cols"], c["dense"].shape[0]))
+    fkw = {"k_real": c["k_real"], "slots": slots}
+    with pytest.raises(ValueError, match="need slots="):
+        fv.spmm_ell_fused_dense_grid(cols, vals, x, w, b, **kw,
+                                     k_real=c["k_real"])
     calls = {
         "spmm_ell_dense_grid": ((cols, vals, t(c["dense"])), {}),
         "spmm_ell_sparse_grid": ((cols, vals, t(c["dense"]), bitmaps), {}),
-        "spmm_ell_fused_dense_grid": ((cols, vals, x, w, b),
-                                      {"k_real": c["k_real"]}),
+        "spmm_ell_fused_dense_grid": ((cols, vals, x, w, b), fkw),
         "spmm_ell_fused_sparse_grid": (
-            (cols, vals, x, w, b, t(c["kb_f"], torch.int32)),
-            {"k_real": c["k_real"]}),
+            (cols, vals, x, w, b, t(c["kb_f"], torch.int32)), fkw),
     }
     for name, (args, extra) in calls.items():
         before = fv.LAUNCHES[name]
@@ -128,11 +138,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, seed):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_cuda_quant_kernels_match_plain_versions(cuda_device, seed, precision):
     """The bf16 instantiations of the four kernels and their int8
-    ``_scaled`` variants against their plain versions on the card; seed 2
-    has widths that are no multiple of 4 (the kernels' scalar paths).  A
-    hub column makes its group's slots span several CTAs."""
-    c = _random_case(seed, r=768, k=640, bk=64, hub=True,
-                     **({"f": 38, "bf": 2} if seed == 2 else {}))
+    ``_scaled`` variants against their plain versions on the card, at the
+    widths of :data:`WIDTHS`.  A hub column makes its group's slots span
+    several CTAs."""
+    c = _random_case(seed, r=768, k=640, bk=64, hub=True, **WIDTHS[seed])
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,

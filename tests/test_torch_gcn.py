@@ -208,3 +208,40 @@ def test_forward_rejects_auto_plan():
     with pytest.raises(NotImplementedError, match="static SpmmPlan"):
         tgcn.gcn_forward(params_from_numpy(params, "cpu"), tgraph, feats, cfg,
                          plan="auto", device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_fused_args_pass_slot_lists_at_every_precision(precision, impl):
+    """The dispatcher hands every fused launch the kernel's slot lists:
+    ``column_slots`` of the table, covering each counted slot (column <
+    k_real) exactly once, in its column's group; ``x`` arrives with rows
+    of whole 16-byte pieces."""
+    from repro_torch.exec import quant
+    from repro_torch.exec.fused import fused_args
+    from repro_torch.kernels import flexvector_spmm as tfv
+
+    feats, params = _inputs("skewed")
+    _, tgraph = _graphs("skewed")
+    cfg = tgcn.GCNConfig(**_dims("skewed"))
+    operands, perm, _ = tgraph.on_device("cpu")
+    plan = dataclasses.replace(tgcn.plan_for_config(cfg), impl=impl,
+                               precision=precision, fused=True).resolve(
+                                   schedulable=operands.schedulable)
+    qparams = quant.quantize_params(params_from_numpy(params, "cpu"),
+                                    precision, cfg.block_rows)
+    x = torch.as_tensor(feats)[perm]
+    name, args, kw, real = fused_args(plan, operands, x, qparams["layer_0"],
+                                      cfg.block_rows)
+    assert name.endswith("_scaled") == (precision == "int8")
+    assert ("sparse" in name) == (impl == "cuda_sparse")
+    group, start, ids = (t.numpy() for t in kw["slots"])
+    assert start[0] == 0 and start[-1] == ids.size == np.diff(start).sum()
+    flat = operands.cols.numpy().reshape(-1)
+    counted = np.flatnonzero((flat >= 0) & (flat < kw["k_real"]))
+    assert np.array_equal(np.sort(ids), counted)      # each exactly once
+    chunk_of = np.repeat(np.arange(group.size), np.diff(start))
+    assert (flat[ids] // tfv.XW_TILE_ROWS == group[chunk_of]).all()
+    x_k = args[2]
+    assert x_k.shape[1] * x_k.element_size() % 16 == 0
+    assert x_k.shape[1] == args[3].shape[0] >= x.shape[1]

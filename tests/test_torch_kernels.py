@@ -362,3 +362,118 @@ def test_column_slots_cut_hub_groups_into_chunks():
     for g, lo, hi in zip(group, start[:-1], start[1:]):
         chunk = ids[lo:hi]
         assert (flat[chunk] // 64 == g).all() and (np.diff(chunk) > 0).all()
+
+
+# -- the fused kernels' order of sums, emulated on the CPU ---------------------
+#
+# The CUDA fused kernels form X W + b per 64-row column group and add
+# v * XW[c] into a zeroed output through the chunks of ``column_slots``.
+# Walking the same chunks with ``index_add_`` from a materialized X W + b
+# (rounded to bf16 under bf16/int8, as ``cast_xw`` does) must give the
+# gather plain version: the same terms, each output row's tau of them
+# summed in another order, so within RTOL of the scale at every precision.
+
+
+def _scatter_case(case, seed=0):
+    """``ragged``: the chip smoke test's ragged shapes (an empty row block,
+    F_in and F not multiples of 4); ``hub``: two thirds of the rows share
+    column 5 in three slots, so its group spans several chunks."""
+    rng = np.random.default_rng(seed)
+    r, tau, k, f, f_in = (64, 5, 48, 40, 37) if case == "ragged" else \
+        (768, 5, 640, 40, 37)
+    cols = rng.integers(0, k, (r, tau)).astype(np.int32)
+    if case == "hub":
+        cols[:2 * r // 3, :3] = 5
+    cols[rng.random((r, tau)) < 0.3] = -1
+    cols[2 * BR:3 * BR] = -1
+    vals = rng.standard_normal((r, tau)).astype(np.float32)
+    vals[cols < 0] = 0.0
+    return dict(cols=cols, vals=vals, x=rng.standard_normal((k, f_in)),
+                w=rng.standard_normal((f_in, f)),
+                b=rng.standard_normal((1, f)), k_real=k - 5)
+
+
+def _scatter_emulation(cols, vals, x, w, b, k_real, slots, cast_xw=None):
+    """The fused kernel's order of sums with ``index_add_``: one chunk of
+    slots at a time into a zeroed output, slots with a column >= k_real
+    dropped."""
+    with tfv.full_f32_matmul():
+        xw = torch.matmul(x.float(), w.float()) + b
+    xw[k_real:] = 0.0
+    if cast_xw is not None:
+        xw = xw.to(cast_xw).float()
+    flat_cols = cols.reshape(-1).long()
+    flat_vals = vals.reshape(-1).float()
+    out = torch.zeros(cols.shape[0], w.shape[1])
+    group, start, ids = (torch.as_tensor(a).long() for a in slots)
+    for i in range(group.shape[0]):
+        chunk = ids[start[i]:start[i + 1]]
+        c = flat_cols[chunk]
+        assert (c // tfv.XW_TILE_ROWS == group[i]).all()
+        chunk, c = chunk[c < k_real], c[c < k_real]
+        out.index_add_(0, chunk // cols.shape[1],
+                       flat_vals[chunk, None] * xw[c])
+    return out
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", ["ragged", "hub"])
+def test_fused_scatter_order_matches_gather_plain(case, precision):
+    c = _scatter_case(case)
+    cols = _t(c["cols"], torch.int32)
+    x, w, b = _t(c["x"]), _t(c["w"]), _t(c["b"])
+    vals, kw = _t(c["vals"]), dict(KW, block_f=8, k_real=c["k_real"])
+    slots = tfv.column_slots(c["cols"], x.shape[0])
+    if case == "hub":
+        assert (slots[0] == 0).sum() > 1        # the hub group is cut
+    if precision != "f32":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        kw["cast_xw"] = torch.bfloat16
+        vals = vals.to(torch.bfloat16)
+    if precision == "int8":
+        q = _t(np.clip(np.rint(c["vals"] * 40), -127, 127), torch.int8)
+        scales = _t(np.random.default_rng(1).uniform(
+            0.01, 0.1, cols.shape[0] // BR))
+        vals = q.float() * scales.repeat_interleave(BR)[:, None]
+        kw["scales"] = scales
+        ref = tfv.spmm_ell_fused_dense_grid(cols, q, x, w, b, **kw)
+    else:
+        ref = tfv.spmm_ell_fused_dense_grid(cols, vals, x, w, b, **kw)
+    out = _scatter_emulation(cols, vals, x, w, b, c["k_real"], slots,
+                             kw.get("cast_xw"))
+    assert rel_max_err(out, ref) <= RTOL
+
+
+def test_fused_operands_align_rows_to_16_bytes():
+    """On the card the fused wrappers hand the kernel rows of ``x`` and
+    ``w`` that start on 16-byte boundaries: zero columns of ``x`` with as
+    many zero rows of ``w``, and ``w``'s rows at a stride ``ldw``; the
+    dispatcher's padding (``pad_fused_operands`` with its K rows and F_out
+    columns) is one copy of each, which the wrappers then take as it is."""
+    rng = np.random.default_rng(0)
+    for dtype, f_in_al, f_out, ldw_want in (
+            (torch.float32, 40, 38, 40), (torch.bfloat16, 40, 38, 40),
+            (torch.bfloat16, 40, 128, 128)):
+        x = _t(rng.standard_normal((20, 37))).to(dtype)
+        w = _t(rng.standard_normal((37, f_out))).to(dtype)
+        xa, wa, ldw = tfv._fused_operands(x, w)
+        assert xa.shape == (20, f_in_al) and wa.shape == (f_in_al, ldw)
+        assert ldw == ldw_want
+        assert xa.data_ptr() % 16 == 0 and wa.data_ptr() % 16 == 0
+        assert not xa[:, 37:].any() and not wa[37:].any() \
+            and not wa[:, f_out:].any()
+        torch.testing.assert_close(
+            (xa.double() @ wa.double())[:, :f_out], x.double() @ w.double())
+        xp, wp = tfv.pad_fused_operands(x, w, k_rows=24, f_out=f_out + 2)
+        assert xp.shape == (24, f_in_al) and wp.shape == (f_in_al, f_out + 2)
+        assert not xp[20:].any() and not wp[:, f_out:].any()
+        xq, wq = tfv.pad_fused_operands(xp, wp)
+        assert xq is xp and wq is wp    # padded already: no new copy
+    x = _t(rng.standard_normal((16, 602)))
+    w = _t(rng.standard_normal((602, 32)))
+    xa, wa, ldw = tfv._fused_operands(x, w)
+    assert xa.shape == (16, 604) and wa.shape == (604, 32) and ldw == 32
+    x = _t(rng.standard_normal((16, 40)))
+    w = _t(rng.standard_normal((40, 32)))
+    xa, wa, ldw = tfv._fused_operands(x, w)
+    assert xa is x and wa is w and ldw == 32    # aligned: passed as they are

@@ -16,9 +16,14 @@ Phases, in order; any failure exits non-zero:
    function (``torch.sparse.mm``, never used by the port) and the least
    time the card could take for the layer's real widths at its storage
    widths (and, beside it, for the block-padded operands the kernel is
-   given).  Each fused kernel's time is split into the zero fill of its
-   output, the product (its tiles of ``X W + b`` alone) and the scatter,
-   beside the scatter's and the fill's floor in device memory.
+   given).  Each aggregation launch prints its column slabs and its
+   gather rate (the slots' dense rows at their 16-byte-rounded width over
+   its time; above the HBM rate, the gathers hit L2), and a case whose
+   dense operand needs two or more slabs (300,032 x 64 f32, 77 MB) is held
+   against the plain version at every precision.  Each fused kernel's time
+   is split into the zero fill of its output, the product (its tiles of
+   ``X W + b`` alone) and the scatter, beside the scatter's and the fill's
+   floor in device memory.
    As a control, the fused bf16/int8 plain version without its bf16
    rounding of ``X W + b`` must fail the agreement check.  A small graph's
    forward pass on the card, at each precision, is held against the same
@@ -87,10 +92,10 @@ BF16_FLOPS_PER_S = 989e12
 # FORWARD_FLIP_SHARE (forwards).
 #
 # Kernel vs plain version.  Aggregation: the same tau products summed in
-# the same order, only FMA contraction differs (bf16/int8: the two
-# half-warps' partial sums are added last).  Fused f32: each element of
-# X W + b is an F_in-long f32 dot product taken in another order than the
-# plain version's matmul (error ~ sqrt(F_in) * 2^-24 of its magnitude),
+# the same slot order, only FMA contraction differs.  Fused f32: each
+# element of X W + b is an F_in-long f32 dot product taken in another order
+# than the plain version's matmul (error ~ sqrt(F_in) * 2^-24 of its
+# magnitude),
 # and the kernel's atomics add the tau terms of an output row in an order
 # that changes from run to run.  Fused bf16/int8: X W + b is summed in
 # another f32 order before its bf16 rounding, so an element near a rounding
@@ -130,6 +135,7 @@ HIDDEN = 64      # PubMed's and Reddit's published hidden width
 SEED = 0         # graph, features and weights
 REPS = 20        # timed launches per kernel and shape
 REQUESTS = 10    # timed full-graph requests per config
+MULTI_SLAB_K = 300_032   # phase 2's multi-slab case: 2,344 k-tiles of 128
 
 
 class SmokeFailure(Exception):
@@ -272,6 +278,23 @@ def work(torch, name: str, args, kw, real=None) -> dict:
     t_flops = flops / rate * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def slabs(fv, dense) -> tuple:
+    """``(slab width, slab count)`` of an aggregation launch on ``dense``:
+    the kernel's columns are its width rounded to 16 bytes."""
+    k, f = dense.shape
+    fa = fv.aligned_width(f, dense.dtype)
+    width = fv.slab_width(k, fa, dense.dtype)
+    return width, -(-fa // width)
+
+
+def gather_bytes(fv, cols, dense) -> int:
+    """Bytes an aggregation launch gathers: one 16-byte-rounded dense row
+    for each ELL slot it counts (a column inside [0, K))."""
+    k, f = dense.shape
+    nnz = int(((cols >= 0) & (cols < k)).sum())
+    return nnz * fv.aligned_width(f, dense.dtype) * dense.element_size()
 
 
 def device_busy(torch, fn) -> dict:
@@ -535,7 +558,17 @@ def phase_kernels(torch, np, fv, cases, dev) -> dict:
                 library_ms=device_ms(torch, lib, REPS),
                 library_call=lib_what,
             )
-            if not is_aggregation(name):
+            if is_aggregation(name):
+                cell["slab_cols"], cell["slabs"] = slabs(fv, args[2])
+                cell["gather_bytes"] = gather_bytes(fv, args[0], args[2])
+                cell["gather_tb_per_s"] = (cell["gather_bytes"] / cell["ms"]
+                                           / 1e9)
+                print(f"phase 2: {key} layer {layer} slabs "
+                      f"{cell['slabs']} x {cell['slab_cols']} columns, "
+                      f"gathered {cell['gather_bytes']} bytes at "
+                      f"{cell['gather_tb_per_s']:.3f} TB/s (HBM "
+                      f"{HBM_BYTES_PER_S / 1e12:.2f})")
+            else:
                 cell["split"] = fused_split(torch, kernel, args, kw, real,
                                             cell["ms"])
                 print(f"phase 2: {key} layer {layer} split: " + " ".join(
@@ -556,6 +589,56 @@ def phase_kernels(torch, np, fv, cases, dev) -> dict:
                   f"padding_byte_share={cell['padding_byte_share']:.3f}")
         results[key] = entry
     return results
+
+
+def multi_slab_check(torch, np, fv, dev) -> dict:
+    """B1 and B2 at every precision on a dense operand too large for one
+    slab (MULTI_SLAB_K rows: 77 MB at 64 f32 or 128 bf16 columns), against
+    their plain versions; returns each entry's slab count and error."""
+    rng = np.random.default_rng(SEED)
+    r, tau, k, br, bk = 65_536, 6, MULTI_SLAB_K, 128, 128
+    cols = rng.integers(0, k, (r, tau)).astype(np.int32)
+    cols[rng.random((r, tau)) < 0.2] = -1
+    vals = rng.standard_normal((r, tau)).astype(np.float32)
+    n_rb, n_kb = r // br, k // bk
+    listed = rng.random((n_rb, n_kb)) < 0.9      # a schedule that drops tiles
+    rb_ids, kb_ids = np.nonzero(listed)
+    first = np.r_[1, rb_ids[1:] != rb_ids[:-1]]
+    bitmaps = torch.as_tensor(fv.schedule_tile_bitmaps(
+        rb_ids, kb_ids, first, n_rb, n_kb), device=dev)
+    c = torch.as_tensor(cols, device=dev)
+    v32 = torch.as_tensor(vals, device=dev)
+    kw = dict(block_rows=br, block_k=bk)
+    out = {}
+    for precision in PRECISIONS:
+        f = 64 if precision == "f32" else 128
+        dense = torch.as_tensor(rng.standard_normal((k, f)),
+                                dtype=torch.float32, device=dev)
+        v, extra = v32, {}
+        if precision != "f32":
+            dense, v = dense.to(torch.bfloat16), v32.to(torch.bfloat16)
+        if precision == "int8":
+            v = torch.as_tensor(np.clip(np.rint(vals * 40), -127, 127),
+                                dtype=torch.int8, device=dev)
+            extra["scales"] = torch.as_tensor(
+                rng.uniform(0.01, 0.1, n_rb), dtype=torch.float32, device=dev)
+        width, n = slabs(fv, dense)
+        check(n >= 2, f"the multi-slab case at {precision} has {n} slab")
+        for name, args in (("spmm_ell_dense_grid", (c, v, dense)),
+                           ("spmm_ell_sparse_grid", (c, v, dense, bitmaps))):
+            if precision == "int8":
+                name += "_scaled"
+            call = dict(kw, block_f=f, **extra)
+            got = agreement(torch, fv.KERNELS[name](*args, **call),
+                            fv.PLAIN[name](*args, **call))
+            torch.cuda.synchronize()
+            key = f"{name}@{precision}"
+            print(f"phase 2: multi-slab {key} K={k} F={f} slabs {n} x "
+                  f"{width} columns {describe(got)}")
+            check(agrees(got, REL_TOL[name]), f"multi-slab {key} disagrees "
+                  f"with its plain version: {describe(got)}")
+            out[key] = {"slabs": n, "slab_cols": width, **got}
+    return out
 
 
 def small_forward_check(torch, np, rt, dev) -> None:
@@ -745,6 +828,7 @@ def run(args) -> int:
 
     cases = main_path_cases(torch, rt, graph, cfg, params, feats, dev)
     kernels = phase_kernels(torch, np, fv, cases, dev)
+    multi_slab = multi_slab_check(torch, np, fv, dev)
     small_forward_check(torch, np, rt, dev)
     main = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
                            ("f32",), 3)
@@ -792,6 +876,7 @@ def run(args) -> int:
     merged = {key: {**main[key], **quant[key]}
               for key in ("forward_ms", "device_busy_ms", "device_idle_share")}
     print(json.dumps({"kernels": lines, "dataset": args.dataset, **merged,
+                      "multi_slab": multi_slab,
                       "logit_error_vs_f32": quant["logit_error_vs_f32"],
                       "f32_control_vs_reference":
                           quant["control_vs_reference"]}))

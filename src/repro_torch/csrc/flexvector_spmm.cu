@@ -26,22 +26,48 @@
 // Aggregation (dense grid / sparse grid): out[r,:] = sum_t vals[r,t] *
 // dense[cols[r,t],:].  The TPU kernels expand a one-hot (BR, BK) block per
 // (row block, k-tile) to feed the MXU and carry the sum from one grid step
-// to the next.  Here the same sum is a gather: one CTA per (8 rows of one
-// row block, f-tile), so that a PubMed-sized table gives thousands of CTAs
-// for 132 SMs; one warp per row, lanes along F so that dense[c, f0:f0+32]
-// reads are coalesced, and a loop over the tau slots that skips PAD_COL.
-// Nothing accumulates across CTAs.  Bound: bytes.  The work is 2 FLOPs per
-// 4+4 bytes of the ELL table plus 4 bytes of a dense row element, far
-// below the ~20 FLOP/byte at which the f32 CUDA cores would bound it; the
-// design keeps every dense read a coalesced 128-byte segment, reads and
-// decides each ELL slot once (one lane per slot, then warp shuffles), and
-// keeps four 128-byte loads of one dense row in flight per warp.  With a
-// bf16 dense operand a 128-column row is 256 bytes: a half-warp takes one
-// slot and a lane loads 8 columns (16 bytes) of it, so a warp still keeps
-// 16-byte loads per lane and two slots in flight; the halves' sums are
-// added at the end.  Bytes per slot fall from 4 + 4 + 512 (f32) to
-// 4 + 2 + 256 (bf16) or 4 + 1 + 256 (int8).
-//
+// to the next.  Here the same sum is a gather, and nothing accumulates
+// across CTAs.  Bound: bytes.  The work is 2 FLOPs per gathered element,
+// far below the ~20 FLOP/byte at which the f32 CUDA cores would bound it.
+// The least bytes are the ELL table, each referenced dense row once and
+// the (R, F) f32 output once; the sub-row output dominates at Reddit.  A
+// gather reads a dense row once per slot (~103 times a row at Reddit), so
+// the design keeps those re-reads out of device memory:
+//   * real width: the dispatcher hands the kernel the dense operand at its
+//     real width rounded up to 16 bytes (f32 to 4 columns, bf16 to 8), not
+//     the planner's 128-column f-tile, so no padding column is gathered or
+//     written.  The wrapper pads other callers' rows the same way.
+//   * L2-resident column slabs: the columns are cut into slabs whose part
+//     of the dense operand (K x slab width x storage bytes) stays within
+//     L2_SLAB_BYTES, 44 MiB of the 50 MB L2 (slab_width in the Python
+//     wrapper: the fewest such slabs, balanced, each a whole number of
+//     16-byte pieces).  The fewest, since a narrower slab row fetches fewer
+//     bytes per gather request, which measured dearer than L2 misses.  The slab is blockIdx.y and the row CTAs blockIdx.x, so the
+//     CTAs in flight gather from one slab, which stays in L2 while they
+//     run; each slab re-reads the ELL table (8 bytes a slot at f32).
+//   * cache hints: the output is stored with st.global.cs (evict-first) and
+//     the ELL table loaded with ld.global.cs, so the streams that pass
+//     through L2 once (1 GB of output per Reddit layer-1 launch) do not push
+//     the slab out; dense rows are loaded with ld.global.nc.  An evict-last
+//     L2 policy on the dense loads (createpolicy + L2::cache_hint) measured
+//     no better, so the loads take the default policy.
+//   * 16-byte gathers, many in flight: a group of lanes spans one slab
+//     row, a lane per 16-byte piece (4 f32 or 8 bf16 columns; 8 lanes for a
+//     128-byte slab, fewer for a narrower one, up to 32 and then a loop),
+//     so a warp works on several rows at once.  Each lane decodes its row's
+//     slots itself (the group's lanes load the same words, one transaction;
+//     two slots a load when tau is even) and issues every gather of up to
+//     kAggBatch slots before its FMAs; a longer row takes further batches.
+//     The sparse grid's bitmap test runs beside the gathers and drops only
+//     the FMA of an unlisted slot.  Groups need no warp collectives, so a
+//     group may straddle warps and a CTA may hold any count of them; the
+//     registers are capped for four CTAs (32 warps) per SM.
+// Each CTA holds rows of one row block (for its int8 scale and its
+// schedule bitmap).  Order of sums: each output element adds its slots'
+// products in slot order, one fmaf each, starting from +0, at every
+// precision; only FMA contraction differs from the plain version.  A bf16
+// or int8 value is widened and scaled first ((float(q) * scale) * d).
+
 // The sparse grid honours its schedule.  The TPU kernel takes the (rb_ids,
 // kb_ids, first) steps of plan_kernel_grid; the schedule is a per-graph
 // constant, so the host turns it once per graph into one k-tile bitmap per
@@ -114,8 +140,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Aggregation: columns per lane per pass (a warp covers 32 * kAggCols).
-constexpr int kAggCols = 4;
+// Aggregation: ELL slots whose gathers a lane issues before their FMAs,
+// and the widest lane group (one 16-byte piece of a slab row a lane).
+constexpr int kAggBatch = 8;
+constexpr int kMaxGroup = 32;
+// Aggregation CTAs resident per SM: caps the registers at 64 a thread so
+// that 32 warps keep their gathers in flight (bf16 and int8 would take 72).
+constexpr int kAggBlocksPerSM = 4;
 
 constexpr int kDefaultSmemLimit = 48 * 1024;
 
@@ -158,141 +189,171 @@ __device__ __forceinline__ void zero_bitmap(unsigned* bitmap, int words) {
 // Aggregation: dense grid (kSched = false) and sparse grid (kSched = true)
 // ---------------------------------------------------------------------------
 
-// Rows per aggregation CTA: one per warp, all inside one row block.
-__host__ __device__ int rows_per_cta(int block_rows) {
-  return block_rows % kWarps == 0 ? kWarps : block_rows;
+// 16 bytes of the dense operand: four f32 or eight bf16 columns.
+template <typename T>
+struct Piece {
+  static constexpr int kCols = 16 / (int)sizeof(T);
+};
+
+// ELL loads: cache-streaming (evict-first), read once per slab.
+template <typename T>
+__device__ __forceinline__ T ell_load(const T* p) {
+  return __ldcs(p);
 }
 
+__device__ __forceinline__ float load_val(const float* p) {
+  return ell_load(p);
+}
+__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      ell_load(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float load_val(const int8_t* p) {
+  return (float)ell_load(reinterpret_cast<const signed char*>(p));
+}
+
+// Two consecutive values of an ELL row (8-, 4- or 2-byte aligned).
+__device__ __forceinline__ float2 load_val2(const float* p) {
+  return ell_load(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load_val2(const __nv_bfloat16* p) {
+  const unsigned w = ell_load(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load_val2(const int8_t* p) {
+  const char2 q = ell_load(reinterpret_cast<const char2*>(p));
+  return make_float2((float)(signed char)q.x, (float)(signed char)q.y);
+}
+
+// One 16-byte piece of a dense row, through the read-only path.
+__device__ __forceinline__ uint4 load_piece(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// acc[e] += v * piece[e], e over the piece's 4 (f32) or 8 (bf16) columns.
+__device__ __forceinline__ void fma_piece(float* acc, float v, uint4 d,
+                                          const float*) {
+  acc[0] = fmaf(v, __uint_as_float(d.x), acc[0]);
+  acc[1] = fmaf(v, __uint_as_float(d.y), acc[1]);
+  acc[2] = fmaf(v, __uint_as_float(d.z), acc[2]);
+  acc[3] = fmaf(v, __uint_as_float(d.w), acc[3]);
+}
+__device__ __forceinline__ void fma_piece(float* acc, float v, uint4 d,
+                                          const __nv_bfloat16*) {
+  // a bf16 is the top half of an f32: widen each pair with a shift / mask
+  acc[0] = fmaf(v, __uint_as_float(d.x << 16), acc[0]);
+  acc[1] = fmaf(v, __uint_as_float(d.x & 0xffff0000u), acc[1]);
+  acc[2] = fmaf(v, __uint_as_float(d.y << 16), acc[2]);
+  acc[3] = fmaf(v, __uint_as_float(d.y & 0xffff0000u), acc[3]);
+  acc[4] = fmaf(v, __uint_as_float(d.z << 16), acc[4]);
+  acc[5] = fmaf(v, __uint_as_float(d.z & 0xffff0000u), acc[5]);
+  acc[6] = fmaf(v, __uint_as_float(d.w << 16), acc[6]);
+  acc[7] = fmaf(v, __uint_as_float(d.w & 0xffff0000u), acc[7]);
+}
+
+// Rows per aggregation CTA, all inside one row block: one per lane group,
+// or the whole row block when the groups do not divide it.
+__host__ __device__ int agg_rows_per_cta(int block_rows, int groups) {
+  return block_rows % groups == 0 ? groups : block_rows;
+}
+
+// One CTA: n_rows rows of one row block x one column slab (blockIdx.y,
+// slab_cols wide, the last one narrower).  Lane group gi (`group` lanes,
+// blockDim.x / group groups) takes rows gi, gi + groups, ...; lane gl of
+// it pieces gl, gl + group, ... of the slab row.
 template <typename V, bool kSched>
-__global__ void __launch_bounds__(kThreads) ell_aggregate_kernel(
+__global__ void __launch_bounds__(kThreads, kAggBlocksPerSM)
+    ell_aggregate_kernel(
     const int* __restrict__ cols, const V* __restrict__ vals,
     const float* __restrict__ scales, const Dense<V>* __restrict__ dense,
-    float* __restrict__ out, int tau, int K, int F, int block_rows,
-    int block_k, int block_f, const unsigned* __restrict__ tile_bitmaps,
-    int n_kb, bool vec) {
+    float* __restrict__ out, int tau, int K, int F, int slab_cols, int group,
+    int n_rows, int block_rows, int block_k, int kb_shift, bool pairs,
+    const unsigned* __restrict__ tile_bitmaps, int n_kb) {
+  using T = Dense<V>;
+  constexpr int kCols = Piece<T>::kCols;
+  constexpr int kOut = kCols / 4;  // float4 stores per piece
   extern __shared__ unsigned bitmap[];
-  const int n_rows = rows_per_cta(block_rows);
   const int64_t r0 = (int64_t)blockIdx.x * n_rows;
   const int rb = (int)(r0 / block_rows);
-  const int f0 = blockIdx.y * block_f;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.y * slab_cols;
+  const int pieces = min(slab_cols, F - c0) / kCols;
 
   if (kSched) {
     const int words = (n_kb + 31) >> 5;
     const unsigned* src = tile_bitmaps + (int64_t)rb * words;
-    for (int i = threadIdx.x; i < words; i += kThreads) bitmap[i] = src[i];
+    for (int i = threadIdx.x; i < words; i += blockDim.x) bitmap[i] = src[i];
     __syncthreads();
   }
-
-  const int f_end = f0 + block_f;
-  if constexpr (std::is_same<V, float>::value) {
-  // Each lane loads and decides one ELL slot of the row (32 at a time);
-  // the warp then broadcasts (column, value) slot by slot with shuffles
-  // and every lane adds its kAggCols columns of that dense row.
-  for (int lr = warp; lr < n_rows; lr += kWarps) {
-    const int64_t r = r0 + lr;
-    for (int fg = f0; fg < f_end; fg += 32 * kAggCols) {
-      float acc[kAggCols];
-#pragma unroll
-      for (int q = 0; q < kAggCols; ++q) acc[q] = 0.f;
-      for (int t0 = 0; t0 < tau; t0 += 32) {
-        int c_own = -1;
-        float v_own = 0.f;
-        if (t0 + lane < tau) {
-          c_own = cols[r * tau + t0 + lane];
-          v_own = vals[r * tau + t0 + lane];
-          bool keep = c_own >= 0 && c_own < K;
-          if (kSched && keep) keep = tile_listed(bitmap, c_own / block_k);
-          if (!keep) c_own = -1;
-        }
-        const int n_t = min(32, tau - t0);
-        for (int j = 0; j < n_t; ++j) {
-          const int c = __shfl_sync(0xffffffffu, c_own, j);
-          const float v = __shfl_sync(0xffffffffu, v_own, j);
-          if (c < 0) continue;  // warp-uniform
-          const float* drow = dense + (int64_t)c * F;
-#pragma unroll
-          for (int q = 0; q < kAggCols; ++q) {
-            const int f = fg + lane + 32 * q;
-            if (f < f_end) acc[q] = fmaf(v, drow[f], acc[q]);
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kAggCols; ++q) {
-        const int f = fg + lane + 32 * q;
-        if (f < f_end) out[r * F + f] = acc[q];
-      }
-    }
-  }
-  } else {
-  // bf16 dense: half-warp `half` takes the odd or even slots, lane hl of
-  // it 8 consecutive columns (one 16-byte load when `vec`: F and block_f
-  // multiples of 8, dense 16-byte aligned).
+  const int groups = blockDim.x / group;
+  const int gi = threadIdx.x / group;
+  const int gl = threadIdx.x - gi * group;
+  if (gi >= groups) return;  // threads past the last whole group
   const float scale = scales != nullptr ? scales[rb] : 1.f;
-  const int hl = lane & 15;
-  const int half = lane >> 4;
-  for (int lr = warp; lr < n_rows; lr += kWarps) {
+
+  for (int lr = gi; lr < n_rows; lr += groups) {
     const int64_t r = r0 + lr;
-    for (int fg = f0; fg < f_end; fg += 128) {
-      const int fc = fg + 8 * hl;
-      float acc[8];
+    const int* crow = cols + r * tau;
+    const V* vrow = vals + r * tau;
+    for (int p = gl; p < pieces; p += group) {
+      const T* dcol = dense + c0 + p * kCols;
+      float acc[kCols];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = 0.f;
-      for (int t0 = 0; t0 < tau; t0 += 32) {
-        int c_own = -1;
-        float v_own = 0.f;
-        if (t0 + lane < tau) {
-          c_own = cols[r * tau + t0 + lane];
-          v_own = to_f32(vals[r * tau + t0 + lane]) * scale;
-          bool keep = c_own >= 0 && c_own < K;
-          if (kSched && keep) keep = tile_listed(bitmap, c_own / block_k);
-          if (!keep) c_own = -1;
+      for (int e = 0; e < kCols; ++e) acc[e] = 0.f;
+      for (int t0 = 0; t0 < tau; t0 += kAggBatch) {
+        // decode: each lane of the group reads the same slots
+        int c[kAggBatch];
+        float v[kAggBatch];
+#pragma unroll
+        for (int j = 0; j < kAggBatch; ++j) {
+          c[j] = -1;
+          v[j] = 0.f;
         }
-        const int n_t = min(32, tau - t0);
-        for (int j = 0; j < n_t; j += 2) {
-          // lane j + 1 <= n_t holds c_own = -1 when n_t is odd
-          const int c = __shfl_sync(kFullMask, c_own, j + half);
-          const float v = __shfl_sync(kFullMask, v_own, j + half);
-          if (c < 0 || fc >= f_end) continue;
-          const __nv_bfloat16* drow = dense + (int64_t)c * F;
-          if (vec) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(drow + fc);
-            const __nv_bfloat162* pair =
-                reinterpret_cast<const __nv_bfloat162*>(&raw);
+        if (pairs) {  // tau even: slot pairs in one load each
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 d = __bfloat1622float2(pair[e]);
-              acc[2 * e] = fmaf(v, d.x, acc[2 * e]);
-              acc[2 * e + 1] = fmaf(v, d.y, acc[2 * e + 1]);
+          for (int j = 0; j < kAggBatch; j += 2)
+            if (t0 + j < tau) {
+              const int2 cc =
+                  ell_load(reinterpret_cast<const int2*>(crow + t0 + j));
+              const float2 vv = load_val2(vrow + t0 + j);
+              c[j] = cc.x;
+              c[j + 1] = cc.y;
+              v[j] = vv.x;
+              v[j + 1] = vv.y;
             }
-          } else {
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              if (fc + e < f_end)
-                acc[e] = fmaf(v, __bfloat162float(drow[fc + e]), acc[e]);
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        acc[e] += __shfl_xor_sync(kFullMask, acc[e], 16);
-      if (half == 0 && fc < f_end) {
-        float* orow = out + r * F;
-        if (vec) {
-          reinterpret_cast<float4*>(orow + fc)[0] =
-              make_float4(acc[0], acc[1], acc[2], acc[3]);
-          reinterpret_cast<float4*>(orow + fc)[1] =
-              make_float4(acc[4], acc[5], acc[6], acc[7]);
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (fc + e < f_end) orow[fc + e] = acc[e];
+          for (int j = 0; j < kAggBatch; ++j)
+            if (t0 + j < tau) {
+              c[j] = ell_load(crow + t0 + j);
+              v[j] = load_val(vrow + t0 + j);
+            }
+        }
+        // every gather of the batch before its FMAs; the sparse grid's
+        // bitmap test runs beside the gathers and drops only the FMA
+        uint4 d[kAggBatch];
+#pragma unroll
+        for (int j = 0; j < kAggBatch; ++j) {
+          if (c[j] >= K) c[j] = -1;
+          d[j] = c[j] >= 0 ? load_piece(dcol + (int64_t)c[j] * F)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < kAggBatch; ++j) {
+          bool keep = c[j] >= 0;
+          if (kSched && keep)
+            keep = tile_listed(bitmap, kb_shift >= 0 ? c[j] >> kb_shift
+                                                     : c[j] / block_k);
+          if constexpr (!std::is_same<V, float>::value) v[j] *= scale;
+          if (keep) fma_piece(acc, v[j], d[j], dcol);
         }
       }
+      float4* o = reinterpret_cast<float4*>(out + r * F + c0 + p * kCols);
+#pragma unroll
+      for (int q = 0; q < kOut; ++q)
+        __stcs(o + q, make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                                  acc[4 * q + 3]));
     }
-  }
   }
 }
 
@@ -723,20 +784,39 @@ template <typename V, bool kSched>
 int launch_aggregate(const int* cols, const void* vals, const float* scales,
                      const void* dense, float* out,
                      const unsigned* tile_bitmaps, int R, int tau, int K,
-                     int F, int block_rows, int block_k, int block_f,
+                     int F, int block_rows, int block_k, int slab_cols,
                      cudaStream_t stream) {
+  constexpr int kCols = Piece<Dense<V>>::kCols;
+  // 16-byte pieces: rows, slabs and both pointers on 16-byte boundaries
+  if (F % kCols != 0 || slab_cols <= 0 || slab_cols % kCols != 0 ||
+      R % block_rows != 0 ||
+      (reinterpret_cast<uintptr_t>(dense) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
   const int n_kb = kSched ? K / block_k : 0;
   const int dyn = kSched ? bitmap_bytes(n_kb) : 0;
   cudaError_t e = allow_smem(ell_aggregate_kernel<V, kSched>, 0, dyn);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = ((F | block_f) & 7) == 0 &&
-                   (reinterpret_cast<uintptr_t>(dense) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  dim3 grid(R / rows_per_cta(block_rows), F / block_f);
-  ell_aggregate_kernel<V, kSched><<<grid, kThreads, dyn, stream>>>(
+  const int group = slab_cols / kCols < kMaxGroup ? slab_cols / kCols
+                                                  : kMaxGroup;
+  const int n_rows = agg_rows_per_cta(block_rows, kThreads / group);
+  // fewer threads when one row block holds fewer rows than the groups
+  const int wanted = (group * n_rows + 31) / 32 * 32;
+  const int threads = wanted < kThreads ? wanted : kThreads;
+  // k-tile of a column by a shift when block_k is a power of two
+  int kb_shift = -1;
+  for (int b = 0; b < 31; ++b)
+    if (block_k == (1 << b)) kb_shift = b;
+  // slot pairs in one load when they lie on the pair's boundary
+  const bool pairs = tau % 2 == 0 &&
+                     (reinterpret_cast<uintptr_t>(cols) & 7) == 0 &&
+                     (reinterpret_cast<uintptr_t>(vals) &
+                      (2 * sizeof(V) - 1)) == 0;
+  dim3 grid(R / n_rows, (F + slab_cols - 1) / slab_cols);
+  ell_aggregate_kernel<V, kSched><<<grid, threads, dyn, stream>>>(
       cols, static_cast<const V*>(vals), scales,
-      static_cast<const Dense<V>*>(dense), out, tau, K, F, block_rows,
-      block_k, block_f, tile_bitmaps, n_kb, vec);
+      static_cast<const Dense<V>*>(dense), out, tau, K, F, slab_cols, group,
+      n_rows, block_rows, block_k, kb_shift, pairs, tile_bitmaps, n_kb);
   return (int)cudaGetLastError();
 }
 
@@ -744,22 +824,23 @@ template <bool kSched>
 int aggregate(int vtype, const int* cols, const void* vals,
               const float* scales, const void* dense, float* out,
               const unsigned* tile_bitmaps, int R, int tau, int K, int F,
-              int block_rows, int block_k, int block_f, cudaStream_t stream) {
+              int block_rows, int block_k, int slab_cols,
+              cudaStream_t stream) {
   // scales go with int8 values and only with them
   if ((vtype == kI8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
   switch (vtype) {
     case kF32:
       return launch_aggregate<float, kSched>(
           cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, block_f, stream);
+          block_rows, block_k, slab_cols, stream);
     case kBF16:
       return launch_aggregate<__nv_bfloat16, kSched>(
           cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, block_f, stream);
+          block_rows, block_k, slab_cols, stream);
     case kI8:
       return launch_aggregate<int8_t, kSched>(
           cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, block_f, stream);
+          block_rows, block_k, slab_cols, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -837,12 +918,15 @@ const char* fv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// dense: (K, F) with F a whole number of 16-byte pieces and 16-byte
+// aligned, like out (R, F) f32; slab_cols: slab_width in the Python
+// wrapper, a whole number of pieces.
 int fv_spmm_dense_grid(const int* cols, const void* vals, const float* scales,
                        const void* dense, float* out, int R, int tau, int K,
-                       int F, int block_rows, int block_k, int block_f,
+                       int F, int block_rows, int block_k, int slab_cols,
                        int vtype, void* stream) {
   return aggregate<false>(vtype, cols, vals, scales, dense, out, nullptr, R,
-                          tau, K, F, block_rows, block_k, block_f,
+                          tau, K, F, block_rows, block_k, slab_cols,
                           (cudaStream_t)stream);
 }
 
@@ -852,10 +936,10 @@ int fv_spmm_dense_grid(const int* cols, const void* vals, const float* scales,
 int fv_spmm_sparse_grid(const int* cols, const void* vals,
                         const float* scales, const void* dense, float* out,
                         const unsigned* tile_bitmaps, int R, int tau, int K,
-                        int F, int block_rows, int block_k, int block_f,
+                        int F, int block_rows, int block_k, int slab_cols,
                         int vtype, void* stream) {
   return aggregate<true>(vtype, cols, vals, scales, dense, out, tile_bitmaps,
-                         R, tau, K, F, block_rows, block_k, block_f,
+                         R, tau, K, F, block_rows, block_k, slab_cols,
                          (cudaStream_t)stream);
 }
 

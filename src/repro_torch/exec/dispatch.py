@@ -50,12 +50,20 @@ def aggregation_args(
     arguments: ``(name, args, kwargs, (r, f))``, where ``name`` is the
     :data:`~repro_torch.kernels.flexvector_spmm.KERNELS` entry (``*_scaled``
     for int8 values) and ``(r, f)`` the unpadded output shape to cut the
-    padded result back to."""
+    padded result back to.
+
+    Rows are padded to ``plan.block_rows`` and the dense operand's rows to
+    ``plan.block_k``, but its columns only to whole 16-byte pieces of its
+    storage type (f32 to a multiple of 4, bf16 of 8), which the kernel
+    takes as its ``block_f``: it gathers and writes no column of the
+    planner's ``plan.block_f`` f-tile beyond those.  ``plan.block_f``
+    keeps its meaning for the planner (``plan_kernel_grid``)."""
+    block_f = fv.aligned_width(dense.shape[1], dense.dtype)
     cols_p, vals_p, dense_p, (r, f) = fv.pad_operands(
-        operands.cols, vals, dense, plan.block_rows, plan.block_k, plan.block_f
+        operands.cols, vals, dense, plan.block_rows, plan.block_k, block_f
     )
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
-              block_f=plan.block_f)
+              block_f=block_f)
     suffix = ""
     if scales is not None:
         kw["scales"], suffix = scales, "_scaled"

@@ -81,9 +81,18 @@ PRECISION_LAUNCHES: Dict[str, int] = {
 #: ``kXwRows`` in ``csrc/flexvector_spmm.cu``.
 XW_TILE_ROWS = 64
 
-#: The fused kernels copy rows of ``x`` and ``w`` into shared memory in
-#: 16-byte pieces, so each row must start on a 16-byte boundary.
+#: The kernels load rows of ``x``, ``w`` and the dense operand in 16-byte
+#: pieces, so each row must start on a 16-byte boundary.
 _ROW_ALIGN_BYTES = 16
+
+#: Bytes of the dense operand one aggregation slab may hold
+#: (:func:`slab_width`): most of the H100's 50 MB L2, the rest left to the
+#: ELL table and the output streaming through.  Chosen by measurement
+#: (``scripts/aggregation_slabs.py``, ``PERF.md``): at Reddit a 41 MB slab
+#: of 44 f32 columns beat two of 22 MB, and two 30 MB slabs of 32 columns
+#: beat one of 60 MB and four of 15 MB; narrower slabs gather fewer bytes
+#: per request, which costs more than the L2 misses they save.
+L2_SLAB_BYTES = 44 * 2 ** 20
 
 
 def reset_launches() -> None:
@@ -96,10 +105,11 @@ def reset_launches() -> None:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # cols, vals, scales, dense, out, R, tau, K, F, BR, BK, BF, vtype, stream
+    # cols, vals, scales, dense, out, R, tau, K, F, BR, BK, slab_cols, vtype,
+    # stream
     "fv_spmm_dense_grid": [_P] * 5 + [_I] * 8 + [_P],
     # cols, vals, scales, dense, out, tile_bitmaps,
-    # R, tau, K, F, BR, BK, BF, vtype, stream
+    # R, tau, K, F, BR, BK, slab_cols, vtype, stream
     "fv_spmm_sparse_grid": [_P] * 6 + [_I] * 8 + [_P],
     # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
     # n_chunks, tau, K, F_in, F_out, ldw, k_real, BR, BK, vtype, stream
@@ -228,6 +238,48 @@ def _block_scales(scales: torch.Tensor, r: int,
     return scales[:n_rb].contiguous()
 
 
+# -- row widths and column slabs ------------------------------------------------
+
+
+def _piece_cols(dtype: torch.dtype) -> int:
+    """Columns of ``dtype`` in one 16-byte piece."""
+    return _ROW_ALIGN_BYTES // torch.empty(0, dtype=dtype).element_size()
+
+
+def aligned_width(n: int, dtype: torch.dtype) -> int:
+    """``n`` columns of ``dtype`` rounded up to whole 16-byte pieces."""
+    per = _piece_cols(dtype)
+    return -(-n // per) * per
+
+
+def _zero_padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` as a contiguous (rows, cols) tensor on a 16-byte boundary: as
+    it is where it already is one, else a fresh zero-padded copy."""
+    if (tuple(t.shape) == (rows, cols) and t.is_contiguous()
+            and t.data_ptr() % _ROW_ALIGN_BYTES == 0):
+        return t
+    out = t.new_zeros(rows, cols)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def slab_width(k: int, f: int, dtype: torch.dtype) -> int:
+    """Columns per slab of the aggregation kernels' dense operand.
+
+    The kernels walk the ``f`` columns of a ``(k, f)`` dense operand of
+    ``dtype`` in slabs, one after the other, so that the rows they gather
+    come from L2.  This takes the fewest slabs whose part of the operand
+    (``k`` rows x slab width) fits :data:`L2_SLAB_BYTES`, and balances
+    them: each is a whole number of 16-byte pieces, the last one may be
+    narrower, and together they cover ``f`` exactly.  A slab is at least
+    one piece wide, however large ``k``.
+    """
+    pieces = -(-f // _piece_cols(dtype))
+    fit = max(1, L2_SLAB_BYTES // max(k * _ROW_ALIGN_BYTES, 1))
+    n_slabs = max(1, -(-pieces // fit))
+    return _piece_cols(dtype) * -(-pieces // n_slabs)
+
+
 # -- shared masks ---------------------------------------------------------------
 
 
@@ -348,6 +400,23 @@ def column_slots(cols, n_dense_rows: int):
 # -- B1 / B1s: dense grid ---------------------------------------------------------
 
 
+def _aggregate(name, fn, cols, vals, scales, dense, tile_bitmaps,
+               block_rows, block_k) -> torch.Tensor:
+    """Launch aggregation kernel ``fn`` over ``dense``'s columns in 16-byte
+    pieces and L2-sized slabs; returns the (R, F) f32 output."""
+    r, tau = cols.shape
+    k, f = dense.shape
+    fa = aligned_width(f, dense.dtype)
+    dense = _zero_padded(dense, k, fa)
+    out = torch.empty(r, fa, dtype=torch.float32, device=cols.device)
+    if r and f:
+        sched = () if tile_bitmaps is None else (tile_bitmaps,)
+        _launch(name, vals, fn, cols.device, cols, vals, scales, dense, out,
+                *sched, r, tau, k, fa, block_rows, block_k,
+                slab_width(k, fa, dense.dtype))
+    return out if fa == f else out[:, :f]
+
+
 def spmm_ell_dense_grid_plain(cols, vals, dense, *, block_rows=128,
                               block_k=128, block_f=128,
                               scales=None) -> torch.Tensor:
@@ -370,10 +439,17 @@ def spmm_ell_dense_grid(
     scales: Optional[torch.Tensor] = None,  # int8: (R / BR,) f32 per row block
 ) -> torch.Tensor:
     """Sub-row products ``out[r] = sum_t vals[r,t] dense[cols[r,t]]``, (R, F)
-    f32."""
+    f32.
+
+    The kernel gathers and writes only ``dense``'s own ``F`` columns,
+    rounded up to whole 16-byte pieces (:func:`aligned_width`; a row that
+    is not one is padded in a copy and the output cut back to ``F``), in
+    L2-sized column slabs (:func:`slab_width`).  ``block_f`` only checks
+    the padding; the dispatcher passes the real width rounded to 16 bytes.
+    """
     dev = _check_ell(cols, vals, scales)
     _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
-    r, tau = cols.shape
+    r = cols.shape[0]
     k, f = dense.shape
     _check_padded(r, k, f, block_rows, block_k, block_f)
     if scales is not None:
@@ -381,12 +457,8 @@ def spmm_ell_dense_grid(
     if dev.type == "cpu":
         return spmm_ell_dense_grid_plain(cols, vals, dense,
                                          block_rows=block_rows, scales=scales)
-    out = torch.empty(r, f, dtype=torch.float32, device=dev)
-    if r and f:
-        _launch("spmm_ell_dense_grid", vals, "fv_spmm_dense_grid", dev,
-                cols, vals, scales, dense, out, r, tau, k, f, block_rows,
-                block_k, block_f)
-    return out
+    return _aggregate("spmm_ell_dense_grid", "fv_spmm_dense_grid", cols,
+                      vals, scales, dense, None, block_rows, block_k)
 
 
 # -- B2 / B2s: sparse grid --------------------------------------------------------
@@ -416,11 +488,12 @@ def spmm_ell_sparse_grid(
     scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sub-row products over the (rb, kb) steps of a block-skipping schedule,
-    given as :func:`schedule_tile_bitmaps` of its steps."""
+    given as :func:`schedule_tile_bitmaps` of its steps; the kernel reads
+    the columns as :func:`spmm_ell_dense_grid`'s does."""
     dev = _check_ell(cols, vals, scales)
     _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
     _check_tensor("tile_bitmaps", tile_bitmaps, torch.int32, 2, dev)
-    r, tau = cols.shape
+    r = cols.shape[0]
     k, f = dense.shape
     _check_padded(r, k, f, block_rows, block_k, block_f)
     want = (r // block_rows, _bitmap_words(k // block_k))
@@ -429,36 +502,15 @@ def spmm_ell_sparse_grid(
                          f"{want}, got {tuple(tile_bitmaps.shape)}")
     if scales is not None:
         scales = _block_scales(scales, r, block_rows)
-    kw = dict(block_rows=block_rows, block_k=block_k, block_f=block_f)
     if dev.type == "cpu":
-        return spmm_ell_sparse_grid_plain(cols, vals, dense, tile_bitmaps,
-                                          scales=scales, **kw)
-    out = torch.empty(r, f, dtype=torch.float32, device=dev)
-    if r and f:
-        _launch("spmm_ell_sparse_grid", vals, "fv_spmm_sparse_grid", dev,
-                cols, vals, scales, dense, out, tile_bitmaps, r, tau, k, f,
-                block_rows, block_k, block_f)
-    return out
+        return spmm_ell_sparse_grid_plain(
+            cols, vals, dense, tile_bitmaps, block_rows=block_rows,
+            block_k=block_k, block_f=block_f, scales=scales)
+    return _aggregate("spmm_ell_sparse_grid", "fv_spmm_sparse_grid", cols,
+                      vals, scales, dense, tile_bitmaps, block_rows, block_k)
 
 
 # -- B3 / B3s: fused dense grid ---------------------------------------------------
-
-
-def _aligned_width(n: int, dtype: torch.dtype) -> int:
-    """``n`` columns of ``dtype`` rounded up to whole 16-byte pieces."""
-    per = _ROW_ALIGN_BYTES // torch.empty(0, dtype=dtype).element_size()
-    return -(-n // per) * per
-
-
-def _zero_padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """``t`` as a contiguous (rows, cols) tensor on a 16-byte boundary: as
-    it is where it already is one, else a fresh zero-padded copy."""
-    if (tuple(t.shape) == (rows, cols) and t.is_contiguous()
-            and t.data_ptr() % _ROW_ALIGN_BYTES == 0):
-        return t
-    out = t.new_zeros(rows, cols)
-    out[:t.shape[0], :t.shape[1]] = t
-    return out
 
 
 def pad_fused_operands(x: torch.Tensor, w: torch.Tensor, k_rows: int = 0,
@@ -469,7 +521,7 @@ def pad_fused_operands(x: torch.Tensor, w: torch.Tensor, k_rows: int = 0,
     of ``w`` to whole 16-byte pieces, so that every row of ``x`` starts on
     a 16-byte boundary.  The zero columns of ``x`` meet zero rows of ``w``
     and add exact zeros to every sum."""
-    f_in = _aligned_width(w.shape[0], x.dtype)
+    f_in = aligned_width(w.shape[0], x.dtype)
     return (_zero_padded(x, max(k_rows, x.shape[0]), f_in),
             _zero_padded(w, f_in, max(f_out, w.shape[1])))
 
@@ -480,7 +532,7 @@ def _fused_operands(x: torch.Tensor, w: torch.Tensor):
     with ``w``'s rows at a stride of ``ldw`` >= F_out columns, a 16-byte
     multiple."""
     x, w = pad_fused_operands(x, w)
-    ldw = _aligned_width(w.shape[1], w.dtype)
+    ldw = aligned_width(w.shape[1], w.dtype)
     return x, _zero_padded(w, w.shape[0], ldw), ldw
 
 

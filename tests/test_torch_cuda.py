@@ -262,3 +262,81 @@ def test_cuda_quant_forward_matches_cpu(cuda_device, impl, fused, precision):
     assert at and all(k.endswith(f"@{precision}") for k in at), at
     assert rel_max_err(out, ref) <= QUANT_FORWARD_TOL
     assert flip_share(out, ref) <= FORWARD_FLIP_SHARE
+
+
+# B1/B2 column extents: f32 one piece (4), three (12), the dispatcher's
+# 41 -> 44, a 64-wide layer and more than 32 pieces (136, whose lanes loop
+# over the row); bf16 (and int8's bf16 operand) one piece (8), 48 and 64.
+AGG_WIDTHS = ([("f32", f) for f in (4, 12, 44, 64, 136)]
+              + [(p, f) for p in ("bf16", "int8") for f in (8, 48, 64)])
+
+
+def _aggregation_calls(c, precision, device, f):
+    """B1 and B2 of ``c`` at ``precision`` on the card, as (name, args,
+    kwargs) with ``block_f = f`` (the whole width, as the dispatcher
+    passes it)."""
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    kw = dict(c["kw"], block_f=f)
+    cols = t(c["cols"], torch.int32)
+    vals, dense = t(c["vals"]), t(c["dense"])
+    if precision != "f32":
+        vals, dense = vals.to(torch.bfloat16), dense.to(torch.bfloat16)
+    suffix = ""
+    if precision == "int8":
+        n_rb = c["cols"].shape[0] // kw["block_rows"]
+        vals = t(np.clip(np.rint(c["vals"] * 40), -127, 127), torch.int8)
+        kw["scales"] = t(np.random.default_rng(3).uniform(0.01, 0.1, n_rb))
+        suffix = "_scaled"
+    bitmaps = t(fv.schedule_tile_bitmaps(
+        c["rb_ids"], c["kb_ids"], c["first"],
+        c["cols"].shape[0] // kw["block_rows"],
+        c["dense"].shape[0] // kw["block_k"]), torch.int32)
+    return [("spmm_ell_dense_grid" + suffix, (cols, vals, dense), kw),
+            ("spmm_ell_sparse_grid" + suffix, (cols, vals, dense, bitmaps),
+             kw)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision, f", AGG_WIDTHS)
+def test_cuda_aggregation_widths_match_plain_versions(cuda_device, precision,
+                                                      f):
+    """B1/B2 at the real-width column extents, on the ragged case (an
+    empty row block, a schedule that visits a row block twice), with
+    k-tiles of 64 and 80 columns (the sparse grid's tile by a shift and by
+    a division)."""
+    for bk in (64, 80):
+        c = _random_case(4, r=768, k=640, bk=bk, f=f)
+        for name, args, kw in _aggregation_calls(c, precision, cuda_device,
+                                                 f):
+            before = fv.LAUNCHES[name]
+            out = fv.KERNELS[name](*args, **kw)
+            ref = fv.PLAIN[name](*args, **kw)
+            torch.cuda.synchronize()
+            assert fv.LAUNCHES[name] == before + 1
+            assert out.shape == ref.shape == (768, f)
+            assert rel_max_err(out, ref) <= TOL[name.replace("_scaled", "")], \
+                (name, bk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_cuda_aggregation_multi_slab(cuda_device, precision):
+    """A dense operand larger than the L2 (300,032 rows, 2,344 k-tiles of
+    128: 77 MB at 64 f32 or 128 bf16 columns) takes two or more column
+    slabs, and B1/B2 still equal their plain versions."""
+    k, f = 300_032, 64 if precision == "f32" else 128
+    c = _random_case(5, r=4096, tau=6, k=k, bk=128, br=128, f=f)
+    dtype = torch.float32 if precision == "f32" else torch.bfloat16
+    width = fv.slab_width(k, f, dtype)
+    per_slab = fv.L2_SLAB_BYTES // (k * 16)          # 16-byte pieces
+    pieces = f * torch.empty(0, dtype=dtype).element_size() // 16
+    n_slabs = -(-f // width)
+    assert n_slabs == -(-pieces // per_slab) >= 2
+    for name, args, kw in _aggregation_calls(c, precision, cuda_device, f):
+        out = fv.KERNELS[name](*args, **kw)
+        ref = fv.PLAIN[name](*args, **kw)
+        torch.cuda.synchronize()
+        assert rel_max_err(out, ref) <= TOL[name.replace("_scaled", "")], name

@@ -245,3 +245,40 @@ def test_fused_args_pass_slot_lists_at_every_precision(precision, impl):
     x_k = args[2]
     assert x_k.shape[1] * x_k.element_size() % 16 == 0
     assert x_k.shape[1] == args[3].shape[0] >= x.shape[1]
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+@pytest.mark.parametrize("precision, f, want", [
+    ("f32", 64, 64), ("f32", 41, 44), ("f32", 3, 4),
+    ("bf16", 41, 48), ("bf16", 3, 8), ("int8", 41, 48),
+])
+def test_aggregation_args_take_the_real_width(precision, f, want, impl):
+    """The dispatcher hands B1/B2 the dense operand at its real width
+    rounded up to 16 bytes of its storage type (f32 to 4 columns, bf16 and
+    int8's bf16 operand to 8), not the plan's 128-column f-tile, with rows
+    padded to ``block_rows`` and dense rows to ``block_k``; the wrapper
+    cut back to ``(r, f)`` gives the reference impl's sub-row products."""
+    from repro_torch.exec import dispatch
+    from repro_torch.kernels import flexvector_spmm as tfv
+
+    _, tgraph = _graphs("skewed")
+    operands, _, _ = tgraph.on_device("cpu")
+    blocks = CASES["skewed"][-1]
+    plan = tgcn.SpmmPlan(impl=impl, block_rows=blocks, block_k=blocks,
+                         block_f=128, precision=precision).resolve(
+                             schedulable=operands.schedulable)
+    dense = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (tgraph.n_nodes, f)), dtype=torch.float32)
+    vals, scales, dense = dispatch.prepare_precision(plan, operands, dense)
+    name, args, kw, (r, f_out) = dispatch.aggregation_args(
+        plan, operands, vals, dense, scales)
+    k_pad = -(-tgraph.n_nodes // blocks) * blocks
+    assert kw["block_f"] == want and f_out == f
+    assert tuple(args[2].shape) == (k_pad, want)
+    assert args[0].shape[0] % blocks == 0 and r == operands.cols.shape[0]
+    assert ("sparse" in name) == (impl == "cuda_sparse")
+    out = tfv.KERNELS[name](*args, **kw)[:r, :f]
+    ref = dispatch.sub_row_products(
+        dataclasses.replace(plan, impl="reference", effective_impl=None)
+        .resolve(schedulable=True), operands, vals, dense, scales)
+    assert rel_max_err(out.numpy(), ref.numpy()) <= RTOL

@@ -477,3 +477,69 @@ def test_fused_operands_align_rows_to_16_bytes():
     w = _t(rng.standard_normal((40, 32)))
     xa, wa, ldw = tfv._fused_operands(x, w)
     assert xa is x and wa is w and ldw == 32    # aligned: passed as they are
+
+
+# -- the aggregation kernels' columns: real widths and L2 slabs ----------------
+
+
+@pytest.mark.parametrize("k, f, dtype", [
+    (233_088, 64, torch.float32), (233_088, 44, torch.float32),
+    (233_088, 64, torch.bfloat16), (233_088, 48, torch.bfloat16),
+    (300_000, 64, torch.float32), (300_000, 128, torch.bfloat16),
+    (19_840, 64, torch.float32), (1, 4, torch.float32),
+    (1, 136, torch.float32), (1, 8, torch.bfloat16),
+    (4_000_000, 64, torch.float32),
+])
+def test_slab_width_covers_the_columns_within_the_budget(k, f, dtype):
+    """Each slab is a whole number of 16-byte pieces and, unless one piece
+    alone is over the budget, holds at most ``L2_SLAB_BYTES`` of the dense
+    operand; the slabs cover ``f`` exactly, are as few as the budget
+    allows and as even as the pieces allow."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    per = 16 // size
+    width = tfv.slab_width(k, f, dtype)
+    n = -(-f // width)
+    assert width > 0 and width % per == 0
+    assert (n - 1) * width < f <= n * width            # covers f exactly
+    assert k * width * size <= tfv.L2_SLAB_BYTES or width == per
+    pieces = f // per
+    if n > 1:                                          # the fewest slabs
+        assert k * 16 * -(-pieces // (n - 1)) > tfv.L2_SLAB_BYTES
+    assert width // per == -(-pieces // n)             # balanced
+    if k * f * size > 50 * 2 ** 20:                    # more than the L2
+        assert n >= 2
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("block_f", [4, 44, 48])
+@pytest.mark.parametrize("kernel", ["dense_grid", "sparse_grid"])
+def test_narrow_wrappers_match_plain_and_reference(kernel, block_f, precision):
+    """B1/B2 at the narrow column extents the dispatcher now gives them:
+    the wrapper equals its plain version and the JAX package's oracle
+    (``repro.kernels.ref``; int8 dequantized by its quant oracle; B2 under
+    the full schedule, which counts every slot)."""
+    from repro.kernels import ref as jref
+
+    e, j, jsc, t, tsc = _quant_operands(
+        "int8" if precision == "int8" else "bf16", seed=4, f=block_f)
+    dense = t["dense"]
+    vals = t["vals"]
+    if precision == "f32":
+        dense, vals = dense.float(), vals.float()
+    kw = dict(KW, block_f=block_f)
+    args = (t["cols"], vals, dense)
+    if kernel == "sparse_grid":
+        args += (_bitmaps(e, _grid(e)),)
+    name = f"spmm_ell_{kernel}" + ("_scaled" if precision == "int8" else "")
+    out = tfv.KERNELS[name](*args, **kw, **tsc)
+    assert out.shape == (e.cols.shape[0], block_f)
+    torch.testing.assert_close(out, tfv.PLAIN[name](*args, **kw, **tsc),
+                               rtol=0, atol=0)
+    jdense = jnp.asarray(dense.float().numpy())
+    if precision == "int8":
+        ref = jref.spmm_ell_quant_ref(j["cols"], j["vals"], jsc["scales"],
+                                      jdense, BR)
+    else:
+        ref = jref.spmm_ell_ref(j["cols"], jnp.asarray(vals.float().numpy()),
+                                jdense)
+    assert rel_max_err(out, ref) <= RTOL

@@ -44,8 +44,34 @@ Phases, in order; any failure exits non-zero:
    values of another.  As a control, the f32 forward in the place of each
    must fail the agreement check.
 
-Prints one ``{"fused_split": ...}`` line and one ``{"kernels": [...]}``
-line, then as the last line
+5. Serving: ``ServeEngine`` (the port's registry, sampler, bucketed
+   micro-batcher and CUDA graphs) at the serving CLI's defaults, sharing
+   phase 3's ``ArtifactRegistry`` (so the dataset is preprocessed once:
+   its ``builds`` count does not move when an engine is built).  Engines:
+   ``cuda`` at f32, bf16 and int8, fused at f32 and int8, and
+   ``cuda_sparse``, which must record its degradation to the dense grid
+   in the batcher (at Reddit only f32 unfused and int8 fused).  For each:
+   warmup captures one CUDA graph per (rung, batch); then, timed, a slice
+   of the CLI's request draw that no engine has served (so each request
+   pays its subgraph's preprocessing; the registry's builds and memory
+   hits in the window are printed), some through ``query`` and the rest
+   in one ``query_batch``, and 100 full-graph forwards, with no capture
+   after warmup.  Every answer is held against an ``impl="reference"``
+   engine on the card at the same precision, a sample against an eager
+   ``gcn_forward`` over each request's own subgraph (no batcher, no
+   replay), and requests found for every warmed rung run through
+   ``batcher.run`` at batches of 1, 2, 3, 4 and 8 against eager forwards.
+   One ``query_batch`` is profiled: its device kernels must include the
+   port's aggregation kernel (the fused kernel for fused engines) and no
+   library sparse kernel.  The wrappers' counts in the timed window are
+   the full-graph steps' launches; each captured graph keeps one
+   forward's launches, and replays x those are the replays' launches.
+   Uncapped queries on the small graph of phase 2 are held against
+   full-graph rows.  Prints n, p50 and (from 100 requests up) p99 per
+   scenario, requests/s and the batch's device idle share.
+
+Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line
+and one ``{"serving": ...}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
@@ -54,12 +80,15 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "src/repro_torch/csrc/flexvector_spmm.cu"
@@ -125,6 +154,15 @@ FLIP_SHARE = 1e-2
 # phase 4 control).
 FORWARD_REL_TOL = {"f32": 1e-4, "bf16": 2e-3, "int8": 2e-3}
 FORWARD_FLIP_SHARE = 5e-2
+# Served answers are their seeds' logits, and a seed aggregates the hidden
+# rows of its whole neighbourhood (hundreds at Reddit, a hub's in the
+# larger rungs), so one bf16 rounding flip among them moves all of its
+# logits: the share that moves is the share of seeds with a flip in their
+# field, not the few per mille of phase 4's whole graph (up to 0.15 of a
+# handful of hub seeds on the card).  The f32 forward in bf16's or int8's
+# place moves 0.8-0.98 of the elements (the phase 2 and 4 controls, and
+# phase 5's own on the eager sample), so the limit still tells them apart.
+SERVE_FLIP_SHARE = {"f32": FORWARD_FLIP_SHARE, "bf16": 0.25, "int8": 0.25}
 # Logits vs the f32 reference: the reference's budgets
 # (tests/test_quant.py).
 LOGIT_BUDGET = {"bf16": 0.02, "int8": 0.05}
@@ -136,6 +174,32 @@ SEED = 0         # graph, features and weights
 REPS = 20        # timed launches per kernel and shape
 REQUESTS = 10    # timed full-graph requests per config
 MULTI_SLAB_K = 300_032   # phase 2's multi-slab case: 2,344 k-tiles of 128
+# Phase 5: the serving CLI's defaults (repro_torch.launch.serve_gcn) and
+# its request draw, 1-4 seeds per request from numpy seed 0.  Each engine
+# serves its own slice of one draw in which no seed set repeats, so no
+# timed request has been served before (the registry keeps every subgraph
+# it preprocessed).  Per engine: ``queries`` requests through query, the
+# ``batch`` after them in one query_batch, ``full`` full-graph forwards.
+SERVE = dict(fanout=16, max_batch=8, max_seeds=4, base_bucket_nodes=256)
+SERVE_LOAD = {"pubmed": dict(queries=300, batch=400, full=100),
+              "reddit": dict(queries=200, batch=300, full=100)}
+P99_MIN_REQUESTS = 100    # a scenario timed over fewer reports no p99
+SERVE_EAGER_CHECKED = 16  # answers per engine held against eager forwards
+SERVE_PER_RUNG = 2        # requests found for each warmed rung
+# (impl, precision, fused) of each phase 5 engine, grouped by precision so
+# that each precision's reference engine is built once.  Reddit's requests
+# cost more host time: it runs f32 unfused and int8 fused.
+SERVE_ENGINES = {
+    "pubmed": (("cuda", "f32", False), ("cuda", "f32", True),
+               ("cuda_sparse", "f32", False), ("cuda", "bf16", False),
+               ("cuda", "int8", False), ("cuda", "int8", True)),
+    "reddit": (("cuda", "f32", False), ("cuda", "int8", True)),
+}
+# Kernel names in the profile of a replayed batch (csrc/flexvector_spmm.cu),
+# and names of library sparse kernels that must not appear there.
+AGGREGATION_KERNEL = "ell_aggregate_kernel"
+FUSED_KERNEL = "ell_fused_xw_kernel"
+LIBRARY_SPARSE = ("sparse", "csrmm", "coomm", "spmm")
 
 
 class SmokeFailure(Exception):
@@ -352,14 +416,15 @@ def library_call(torch, name: str, args, kw):
 # -- phases ------------------------------------------------------------------------
 
 
-def phase_device(torch, build) -> dict:
+def phase_device(torch, build) -> tuple:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     t0 = time.perf_counter()
     build.load_library()
     print(f"phase 1: kernel library {build.library_path().name} ready in "
@@ -370,7 +435,7 @@ def phase_device(torch, build) -> dict:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
+            "count": torch.cuda.device_count()}, card
 
 
 def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
@@ -780,6 +845,402 @@ def phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
             "control_vs_reference": control}
 
 
+# -- phase 5: serving ------------------------------------------------------------
+
+
+def serve_draws(np, n_nodes: int, sizes) -> list:
+    """The serving CLI's request draw (1 to max_seeds distinct seeds, numpy
+    seed 0) with every repeated seed set dropped, cut into consecutive
+    slices of ``sizes``: no request of one slice is in another."""
+    rng = np.random.default_rng(0)
+    seen, reqs = set(), []
+    while len(reqs) < sum(sizes):
+        seeds = rng.choice(n_nodes, size=rng.integers(1, SERVE["max_seeds"] + 1),
+                           replace=False)
+        key = tuple(sorted(seeds.tolist()))
+        if key not in seen:
+            seen.add(key)
+            reqs.append(seeds)
+    starts = np.cumsum([0, *sizes])
+    return [reqs[lo:hi] for lo, hi in zip(starts[:-1], starts[1:])]
+
+
+def serve_answers(engine, requests, n_queries: int, n_full: int) -> tuple:
+    """``(full-graph logits, [logits per request])``: the first
+    ``n_queries`` requests one at a time, the rest in one query_batch, and
+    ``n_full`` full-graph forwards."""
+    answers = [engine.query(s) for s in requests[:n_queries]]
+    answers += engine.query_batch(requests[n_queries:])
+    full = None
+    for _ in range(n_full):
+        full = engine.full_forward()
+    return full, answers
+
+
+def eager_answers(torch, engine, subs, precision=None) -> list:
+    """Each subgraph's seed logits from an eager ``gcn_forward`` (the
+    reference impl) over the subgraph's own operand at ``precision`` (the
+    engine's by default): no padding, batcher or graph replay."""
+    from repro_torch.models.gcn import gcn_forward
+
+    cfg = dataclasses.replace(engine.cfg, spmm_impl="reference")
+    out = []
+    for sub in subs:
+        logits = gcn_forward(engine.params, sub.graph,
+                             engine.features[sub.nodes], cfg,
+                             precision=precision or engine.precision,
+                             device=engine.device)
+        out.append(logits[torch.as_tensor(sub.seed_local,
+                                          device=logits.device)].cpu().numpy())
+    return out
+
+
+def hold(torch, np, key: str, what: str, got, want, precision: str,
+         flip_share: float) -> dict:
+    """``got`` vs ``want`` (lists of logits) within FORWARD_REL_TOL at
+    ``precision`` and ``flip_share``; prints and returns the reading."""
+    check(all(a.shape == b.shape for a, b in zip(got, want))
+          and len(got) == len(want), f"{key}: answer shapes ({what})")
+    got, want = np.concatenate(got), np.concatenate(want)
+    check(bool(np.isfinite(got).all()), f"{key}: non-finite answers ({what})")
+    reading = agreement(torch, torch.as_tensor(got), torch.as_tensor(want))
+    print(f"phase 5: {key} {what}: {describe(reading)} (limits rel "
+          f"{FORWARD_REL_TOL[precision]}, flip share {flip_share})")
+    check(agrees(reading, FORWARD_REL_TOL[precision], flip_share),
+          f"{key} disagrees ({what}): {describe(reading)}")
+    return reading
+
+
+def rung_subgraphs(np, engine, registry) -> dict:
+    """Up to SERVE_PER_RUNG subgraphs in each rung the engine warmed, from
+    single-seed requests over seeds spread along the degree order (hubs
+    first), at fanouts from a quarter of the serving fanout up to 64x it,
+    then uncapped.  A candidate is extracted (preprocessed) only when its
+    node set fits a warmed rung that still needs one."""
+    from repro_torch.serve.sampler import SubgraphSampler
+
+    ladder = engine.batcher.ladder
+    warmed = sorted({k[0] for k in engine.batcher._executables})
+    found = {b: [] for b in warmed}
+    order = np.argsort(-engine.adj_norm.row_nnz(), kind="stable")
+    ranks = np.unique(np.geomspace(1, order.size, 48).astype(np.int64)) - 1
+    for fanout in [SERVE["fanout"] * 4 ** i // 4 for i in range(5)] + [None]:
+        sampler = SubgraphSampler(engine.adj_norm, engine.cfg, fanout=fanout,
+                                  registry=registry)
+        for r in ranks:
+            seeds = [int(order[r])]
+            n = sampler.sample_nodes(seeds).size
+            fits = [b for b in warmed if b.nodes >= n]
+            if not fits or len(found[fits[0]]) >= SERVE_PER_RUNG:
+                continue
+            sub = sampler.extract(seeds)
+            bucket = ladder.bucket_for(sub.n_sub_nodes, sub.n_ell_rows)
+            if bucket in found and len(found[bucket]) < SERVE_PER_RUNG:
+                found[bucket].append(sub)
+            if all(len(s) >= SERVE_PER_RUNG for s in found.values()):
+                return found
+    return found
+
+
+def rung_coverage(torch, np, engine, rung_subs: dict, key: str) -> dict:
+    """Every warmed rung at batches of 1, 2, 3, 4 and max_batch (the
+    rung's requests taken in turn) through ``batcher.run``, each answer
+    held against an eager forward over the request's own subgraph.
+
+    A rung's requests are two single seeds, hubs' in the larger rungs: at
+    bf16/int8 one rounding flip in a hub's field moves all of its logits,
+    so their flip share is 0 or most of them and says nothing.  The check
+    there is the relative error alone: a request in the wrong slot, or a
+    wrong offset or scale block, moves its logits by far more than the
+    limit.  That the rungs run at the engine's precision is held by the
+    answer checks and their f32 control."""
+    batcher = engine.batcher
+    prec = engine.precision
+    flips = FORWARD_FLIP_SHARE if prec == "f32" else 1.0
+    sizes = sorted({1, 2, 3, 4, batcher.max_batch})
+    out = {}
+    for bucket, subs in rung_subs.items():
+        name = f"{bucket.nodes}x{bucket.rows}"
+        reqs = [batcher.prepare(s, engine.features[s.nodes]) for s in subs]
+        check(all(r.bucket == bucket for r in reqs), f"{key}: rung request")
+        want = eager_answers(torch, engine, subs)
+        got, ref = [], []
+        for size in sizes:
+            take = [i % len(subs) for i in range(size)]
+            got += batcher.run(engine.params, [reqs[i] for i in take])
+            ref += [want[i] for i in take]
+        out[name] = hold(torch, np, key, f"rung {name} at batches {sizes} "
+                         "vs eager forwards", got, ref, prec, flips)
+    return out
+
+
+def scenario_stats(report) -> dict:
+    """A scenario's report, its p99 dropped under P99_MIN_REQUESTS."""
+    r = dataclasses.asdict(report)
+    if r["n_requests"] < P99_MIN_REQUESTS:
+        r["p99_ms"] = None
+    return r
+
+
+def serving_uncapped_check(torch, np, registry, dev) -> dict:
+    """Uncapped queries (the exact receptive field) on phase 2's small
+    graph against full-graph rows: at f32 within FORWARD_REL_TOL of the
+    same engine's full forward; at bf16/int8 (whose subgraphs quantize in
+    their own row blocks) within the reference's logit budget of the f32
+    full forward."""
+    from repro_torch.core.sparse_formats import random_power_law_csr
+    from repro_torch.exec.quant import logit_error
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.gcn import GCNConfig
+    from repro_torch.serve import ServeEngine
+
+    adj = random_power_law_csr(96, 96, 700, seed=0)
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((96, 12)).astype(np.float32)
+    raw = {f"layer_{i}": {"w": rng.standard_normal(s).astype(np.float32),
+                          "b": rng.standard_normal(s[1]).astype(np.float32)}
+           for i, s in enumerate([(12, 64), (64, 8)])}
+    seeds = [rng.choice(96, size=k, replace=False) for k in (1, 2, 3, 4, 4)]
+
+    def engine(impl, precision, fused):
+        cfg = GCNConfig(in_dim=12, hidden_dim=64, out_dim=8, spmm_impl=impl)
+        return ServeEngine(adj, feats, cfg, params=params_from_numpy(raw, dev),
+                           registry=registry, device=dev, precision=precision,
+                           fused=fused, **dict(SERVE, fanout=None))
+
+    f32_full = engine("reference", "f32", False).full_forward()
+    out = {}
+    for impl, precision, fused in SERVE_ENGINES["pubmed"]:
+        eng = engine(impl, precision, fused)
+        full = eng.full_forward() if precision == "f32" else f32_full
+        got = np.concatenate([eng.query(s) for s in seeds])
+        want = np.concatenate([full[s] for s in seeds])
+        key = f"{impl}{'+fused' if fused else ''}@{precision}"
+        if precision == "f32":
+            reading = agreement(torch, torch.as_tensor(got),
+                                torch.as_tensor(want))
+            print(f"phase 5: uncapped queries {key} vs full-graph rows "
+                  f"(small graph) {describe(reading)}")
+            check(agrees(reading, FORWARD_REL_TOL["f32"], FORWARD_FLIP_SHARE),
+                  f"uncapped queries {key} disagree with the full-graph rows: "
+                  f"{describe(reading)}")
+        else:
+            reading = {"logit_error_vs_f32": logit_error(want, got)}
+            print(f"phase 5: uncapped queries {key} vs f32 full-graph rows "
+                  f"(small graph) logit error "
+                  f"{reading['logit_error_vs_f32']:.3e} (budget "
+                  f"{LOGIT_BUDGET[precision]})")
+            check(reading["logit_error_vs_f32"] <= LOGIT_BUDGET[precision],
+                  f"uncapped queries {key}: logit error over the budget")
+        eng.batcher.clear_executables()
+        out[key] = reading
+    return out
+
+
+def profile_batch(torch, engine, requests) -> dict:
+    """Device kernels of one query_batch (torch.profiler), by name, in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.query_batch(requests)
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def phase_serving(torch, np, fv, registry, data, cfg, params, dev,
+                  dataset: str) -> dict:
+    """Phase 5: each of the dataset's engines ((impl, precision, fused))
+    warmed, timed over requests nothing has served before, held against
+    the reference impl and eager forwards, driven through every warmed
+    rung and profiled; returns each engine's record."""
+    from repro_torch.serve import ServeEngine
+
+    def build(impl, precision, fused):
+        before = registry.stats.builds
+        engine = ServeEngine(
+            data.adj_norm, data.features,
+            dataclasses.replace(cfg, spmm_impl=impl), params=params,
+            registry=registry, device=dev, precision=precision, fused=fused,
+            **SERVE)
+        check(registry.stats.builds == before, "building a serving engine "
+              "preprocessed the dataset again")
+        return engine
+
+    load = SERVE_LOAD[dataset]
+    engines = SERVE_ENGINES[dataset]
+    n_req = load["queries"] + load["batch"]
+    draws = serve_draws(np, data.adj_norm.rows, [n_req] * len(engines))
+    skipped = [e for e in SERVE_ENGINES["pubmed"] if e not in engines]
+    if skipped:
+        print(f"phase 5: at {dataset} skips the engines {skipped}")
+    refs, ref_full, out, rung_subs = {}, {}, {}, None
+    for (impl, precision, fused), requests in zip(engines, draws):
+        key = f"{impl}{'+fused' if fused else ''}@{precision}"
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", RuntimeWarning)
+            engine = build(impl, precision, fused)
+        plan = engine.batcher.plan
+        if impl == "cuda_sparse":
+            check(plan.degraded and plan.effective_impl == "cuda"
+                  and any("degraded" in str(w.message) for w in caught),
+                  f"{key}: the batcher did not record its degradation")
+        built = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        exes = engine.batcher._executables
+        rungs = sorted({k[0] for k in exes})
+        print(f"phase 5: {key} ladder "
+              f"{[(b.nodes, b.rows) for b in engine.batcher.ladder.entries]}; "
+              f"warmed rungs {[(b.nodes, b.rows) for b in rungs]}; "
+              f"{built} CUDA graphs captured in {warm_s:.1f} s; impl "
+              f"{plan.effective_impl}"
+              + (f" ({plan.degraded_reason})" if plan.degraded else ""))
+        check(built > 0, f"{key}: warmup captured no CUDA graph")
+
+        # The timed window: requests no engine has served, so every one
+        # pays its extraction (the registry's builds say so).
+        stats0 = dataclasses.replace(registry.stats)
+        replays0 = {k: e.replays for k, e in exes.items()}
+        fv.reset_launches()
+        t1 = time.perf_counter()
+        full, answers = serve_answers(engine, requests, load["queries"],
+                                      load["full"])
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t1
+        counted = {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n}
+        window = {"builds": registry.stats.builds - stats0.builds,
+                  "mem_hits": registry.stats.mem_hits - stats0.mem_hits,
+                  "requests": len(requests)}
+        check(engine.compile_count == built, f"{key}: "
+              f"{engine.compile_count - built} captures after warmup")
+        replayed = {}
+        for k, e in exes.items():
+            for name, n in e.launches.items():
+                replayed[name] = (replayed.get(name, 0)
+                                  + (e.replays - replays0[k]) * n)
+        tag = "_scaled" if precision == "int8" else ""
+        batch_kernel = ("spmm_ell_fused_dense_grid" if fused
+                        else "spmm_ell_dense_grid") + f"{tag}@{precision}"
+        # the full-graph step runs the config's plan, unfused here
+        full_kernel = ("spmm_ell_sparse_grid" if impl == "cuda_sparse"
+                       else "spmm_ell_dense_grid") + f"{tag}@{precision}"
+        check(replayed.get(batch_kernel, 0) > 0,
+              f"{key}: the replays ran no {batch_kernel}")
+        check(counted.get(full_kernel, 0) > 0,
+              f"{key}: the full-graph steps launched no {full_kernel}")
+        reports = {s: scenario_stats(engine.report(s))
+                   for s in ("full", "query", "batch")}
+        batch_wall_ms = 1e3 * engine.wall["batch"]
+        print(f"phase 5: {key} timed window {window_s:.2f} s; registry "
+              f"builds {window['builds']}, mem_hits {window['mem_hits']} for "
+              f"{window['requests']} requests; launches counted (full-graph "
+              f"steps) {counted}, replayed {replayed}")
+
+        rungs_hit = {}
+        for seeds in requests:
+            sub = engine.sampler.extract(seeds)
+            b = engine.batcher.ladder.bucket_for(sub.n_sub_nodes,
+                                                 sub.n_ell_rows)
+            rungs_hit[f"{b.nodes}x{b.rows}"] = rungs_hit.get(
+                f"{b.nodes}x{b.rows}", 0) + 1
+        print(f"phase 5: {key} requests per rung (nodes x ELL rows) "
+              f"{rungs_hit}")
+
+        if precision not in refs:
+            refs.clear()    # release the previous precision's reference
+            refs[precision] = build("reference", precision, False)
+            ref_full[precision] = refs[precision].full_forward()
+        ref_engine = refs[precision]
+        check(full.shape == (data.adj_norm.rows, cfg.out_dim)
+              and bool(np.isfinite(full).all()), f"{key}: full-graph logits")
+        got_full = hold(torch, np, key, "full graph vs the reference impl",
+                        [full], [ref_full[precision]], precision,
+                        FORWARD_FLIP_SHARE)
+        _, ref_answers = serve_answers(ref_engine, requests, load["queries"],
+                                       0)
+        flips = SERVE_FLIP_SHARE[precision]
+        got = hold(torch, np, key, f"{len(requests)} answers vs the "
+                   f"reference impl", answers, ref_answers, precision, flips)
+        step = max(1, len(requests) // SERVE_EAGER_CHECKED)
+        picked = list(range(0, len(requests), step))[:SERVE_EAGER_CHECKED]
+        subs = [engine.sampler.extract(requests[i]) for i in picked]
+        want = eager_answers(torch, engine, subs)
+        eager = hold(torch, np, key, f"{len(picked)} answers vs eager "
+                     "forwards over their own subgraphs",
+                     [answers[i] for i in picked], want, precision, flips)
+        if precision != "f32":
+            # control: the f32 forward in this precision's place must fail
+            wrong = eager_answers(torch, engine, subs, "f32")
+            control = agreement(torch, torch.as_tensor(np.concatenate(wrong)),
+                                torch.as_tensor(np.concatenate(want)))
+            print(f"phase 5: {key} control, eager f32 answers in the place "
+                  f"of {precision}'s: {describe(control)}")
+            check(not agrees(control, FORWARD_REL_TOL[precision], flips),
+                  f"{key}: the f32 control passes the {precision} check")
+            eager["f32_control"] = control
+        if rung_subs is None:
+            t2 = time.perf_counter()
+            rung_subs = rung_subgraphs(np, engine, registry)
+            empty = [f"{b.nodes}x{b.rows}" for b, s in rung_subs.items()
+                     if not s]
+            print(f"phase 5: requests for every warmed rung found in "
+                  f"{time.perf_counter() - t2:.1f} s: "
+                  + ", ".join(f"{b.nodes}x{b.rows}: "
+                              f"{[x.n_sub_nodes for x in s]} nodes"
+                              for b, s in rung_subs.items()))
+            check(not empty, f"no request reaches the warmed rungs {empty}")
+        coverage = rung_coverage(torch, np, engine, rung_subs, key)
+        check(engine.compile_count == built, f"{key}: "
+              f"{engine.compile_count - built} captures after warmup")
+
+        kernels = profile_batch(torch, engine, requests[load["queries"]:])
+        names = " ".join(kernels)
+        ours = FUSED_KERNEL if fused else AGGREGATION_KERNEL
+        check(ours in names, f"{key}: {ours} is not among the replayed "
+              f"batch's device kernels: {sorted(kernels)[:12]}")
+        bad = [n for n in kernels if any(w in n.lower() for w in LIBRARY_SPARSE)]
+        check(not bad, f"{key}: library sparse kernels in the batch: {bad}")
+        busy = sum(kernels.values())
+        idle = max(0.0, 1.0 - busy / batch_wall_ms)
+        for scenario, r in reports.items():
+            p99 = "n/a" if r["p99_ms"] is None else f"{r['p99_ms']:.3f} ms"
+            print(f"phase 5: {key} {scenario}: n={r['n_requests']}, "
+                  f"p50 {r['p50_ms']:.3f} ms, p99 {p99}, "
+                  f"{r['req_per_s']:.1f} req/s")
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+        print(f"phase 5: {key} batch of {load['batch']}: device busy "
+              f"{busy:.3f} ms of {batch_wall_ms:.3f} ms (idle share "
+              f"{idle:.3f}); top: "
+              + "; ".join(f"{n[:60]} {ms:.3f}" for n, ms in top))
+        out[key] = {
+            "impl": impl, "precision": precision, "fused": fused,
+            "effective_impl": plan.effective_impl,
+            "degraded_reason": plan.degraded_reason,
+            "ladder": [[b.nodes, b.rows] for b in engine.batcher.ladder.entries],
+            "warmed_rungs": [[b.nodes, b.rows] for b in rungs],
+            "captures": built, "warmup_s": warm_s,
+            "post_warmup_captures": engine.compile_count - built,
+            "timed_registry": window, "requests_per_rung": rungs_hit,
+            "launches": {"counted": counted, "replayed": replayed},
+            "scenarios": reports,
+            "vs_reference": got, "full_vs_reference": got_full,
+            "vs_eager": eager, "rungs_vs_eager": coverage,
+            "batch_wall_ms": batch_wall_ms, "batch_device_busy_ms": busy,
+            "batch_device_idle_share": idle,
+            "batch_top_kernels": dict(top),
+        }
+        engine.batcher.clear_executables()
+        del engine
+        torch.cuda.empty_cache()
+    for ref_engine in refs.values():
+        ref_engine.batcher.clear_executables()
+    return {"engines": out, "skipped": [list(e) for e in skipped]}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -794,11 +1255,6 @@ def run(args) -> int:
     try:
         import numpy as np
         import repro_torch
-        import repro_torch.exec as rt
-        from repro_torch.graphs.datasets import DATASETS, load_dataset
-        from repro_torch.kernels import _build
-        from repro_torch.kernels import flexvector_spmm as fv
-        from repro_torch.models.gcn import GCNConfig, GCNGraph, init_params
     except ImportError as e:
         print(f"chip_smoke: the repository's port is not here ({e})",
               file=sys.stderr)
@@ -809,20 +1265,39 @@ def run(args) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache_dir:
+        return drive(torch, np, args, cache_dir)
+
+
+def drive(torch, np, args, cache_dir: str) -> int:
+    """Phases 1-5 on the card; the registry persists under ``cache_dir``."""
+    import repro_torch.exec as rt
+    from repro_torch.graphs.datasets import DATASETS, load_dataset
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flexvector_spmm as fv
+    from repro_torch.models.gcn import GCNConfig, init_params
+    from repro_torch.serve import ArtifactRegistry
+
     dev = torch.device("cuda")
 
-    device = phase_device(torch, _build)
+    device, card = phase_device(torch, _build)
 
     t0 = time.perf_counter()
     spec = DATASETS[args.dataset]
     data = load_dataset(args.dataset, seed=SEED)
     cfg = GCNConfig(in_dim=spec.feature_dim, hidden_dim=HIDDEN,
                     out_dim=spec.classes, n_layers=2)
-    graph = GCNGraph.build(data.adj_norm, cfg)
+    # phase 5's engines share this registry: the dataset is preprocessed
+    # once, here
+    # room for every subgraph phase 5 preprocesses, so the LRU never
+    # drops the dataset's own artifact
+    registry = ArtifactRegistry(cache_dir=cache_dir, mem_capacity=16384)
+    graph = registry.get_or_build(data.adj_norm, cfg, persist=False)
     ell = graph.pre.ell
     print(f"setup: {args.dataset} {spec.nodes} nodes, ELL {ell.padded_rows}x"
           f"{ell.tau} ({ell.nnz} nnz), built in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s (registry builds "
+          f"{registry.stats.builds})")
     params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
     feats = torch.as_tensor(data.features, device=dev)
 
@@ -834,6 +1309,14 @@ def run(args) -> int:
                            ("f32",), 3)
     quant = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
                             ("bf16", "int8"), 4)
+    t5 = time.perf_counter()
+    phase5 = phase_serving(torch, np, fv, registry, data, cfg, params, dev,
+                           args.dataset)
+    serving = phase5["engines"]
+    uncapped = serving_uncapped_check(torch, np, registry, dev)
+    print(f"phase 5: {time.perf_counter() - t5:.1f} s; registry builds "
+          f"{registry.stats.builds} (the dataset once, then each distinct "
+          f"subgraph), mem_hits {registry.stats.mem_hits}")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -869,6 +1352,11 @@ def run(args) -> int:
         else:
             line["launches"] = quant["launches"]["int8"][name]
             line.update(summary(name))
+        line["serving_launches"] = {
+            key: {how: {k: n for k, n in counts.items()
+                        if k.split("@")[0] == name}
+                  for how, counts in e["launches"].items()}
+            for key, e in serving.items()}
         lines.append(line)
     print(json.dumps({"fused_split": {
         key: [cell["split"] for cell in kernels[key]["per_layer"]]
@@ -880,6 +1368,12 @@ def run(args) -> int:
                       "logit_error_vs_f32": quant["logit_error_vs_f32"],
                       "f32_control_vs_reference":
                           quant["control_vs_reference"]}))
+    print(json.dumps({"serving": {
+        "dataset": args.dataset, "card": card, "settings": SERVE,
+        "load": SERVE_LOAD[args.dataset], "engines": serving,
+        "skipped_engines": phase5["skipped"],
+        "uncapped_small_graph": uncapped,
+        "registry": dataclasses.asdict(registry.stats)}}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

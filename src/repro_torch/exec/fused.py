@@ -122,6 +122,16 @@ def _column_slots(operands: SpmmOperands, k: int):
     return operands.memo(("column_slots", k), build)
 
 
+def provide_column_slots(plan: SpmmPlan, operands: SpmmOperands, k: int,
+                         slots) -> None:
+    """Give ``operands`` the fused kernels' slot lists for a ``k``-row
+    ``X``, built by the caller, so that :func:`fused_args` never builds
+    them from ``operands.cols``: that build reads the table back from the
+    device, which a CUDA graph capture forbids.  The serving batcher
+    composes them on the host from each request's slot lists."""
+    operands.memo(("column_slots", _round_up(k, plan.block_k)), lambda: slots)
+
+
 def fused_args(
     plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict,
     w_block_rows: int = quant.QUANT_BLOCK_ROWS,

@@ -358,6 +358,18 @@ def full_f32_matmul():
 # -- fused slot lists --------------------------------------------------------------
 
 
+#: The shortest chunk :func:`column_slots` cuts, unless the chunk ends its
+#: group.
+MIN_CHUNK_SLOTS = 256
+
+
+def max_column_chunks(n_dense_rows: int, n_slots: int) -> int:
+    """Most chunks :func:`column_slots` can cut from a table of ``n_slots``
+    slots over ``n_dense_rows`` rows of ``X``: one per column group, plus
+    one per :data:`MIN_CHUNK_SLOTS` slots."""
+    return -(-n_dense_rows // XW_TILE_ROWS) + -(-n_slots // MIN_CHUNK_SLOTS)
+
+
 def column_slots(cols, n_dense_rows: int):
     """The ELL table transposed by column group, for the fused kernels: one
     chunk of slots per CTA.
@@ -385,7 +397,7 @@ def column_slots(cols, n_dense_rows: int):
     ids = ids[np.argsort(group, kind="stable")]
     counts = np.bincount(group, minlength=-(-n_dense_rows // XW_TILE_ROWS))
     mean = ids.size / max(int(np.count_nonzero(counts)), 1)
-    max_chunk = max(256, 32 * -(-int(4 * mean) // 32))
+    max_chunk = max(MIN_CHUNK_SLOTS, 32 * -(-int(4 * mean) // 32))
     per_group = -(-counts // max_chunk)                 # chunks per group
     chunk_group = np.repeat(np.arange(counts.size), per_group)
     # chunk j of group g starts at offset(g) + j * max_chunk

@@ -49,7 +49,9 @@ class GCNGraph:
     """Preprocessed graph operand shared by all layers.
 
     The ELL operand and the permutation index tensors are moved to a
-    device once, on first use there (:meth:`on_device`).
+    device once, on first use there (:meth:`on_device`).  A pickle holds
+    the host arrays only: the placements are rebuilt on first use after
+    unpickling.
     """
 
     pre: PreprocessResult
@@ -64,6 +66,9 @@ class GCNGraph:
             inv = np.empty_like(perm)
             inv[perm] = np.arange(perm.size)
             self.inv = inv
+
+    def __getstate__(self):
+        return dict(self.__dict__, _placed={})
 
     @staticmethod
     def build(adj_norm: CSRMatrix, cfg: GCNConfig) -> "GCNGraph":

@@ -1,0 +1,347 @@
+"""The GCN serving engine: registry + sampler + micro-batcher, end to end.
+
+The port of ``repro.serve.engine``.  Three request scenarios, all on the
+FlexVector SpMM core:
+
+* ``full_forward``  — one full-graph forward (logits for every node),
+  through the registry's full-graph step (an eager ``gcn_forward``);
+* ``query``         — logits for a handful of seed nodes via k-hop
+  fanout-capped extraction (bounded latency, independent of graph size);
+* ``query_batch``   — many concurrent seed queries, grouped by shape
+  bucket and coalesced into one forward (one CUDA graph replay on the
+  card) per bucket chunk.
+
+Every path records wall-clock latency per request; ``latency_report``
+summarizes p50/p99 and throughput (requests/s plus "tok-equivalent"
+seed-logits/s — one answered seed node is the serving unit of work).
+The engine runs on the card unless given ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparse_formats import CSRMatrix
+from repro_torch.device import resolve_device
+from repro_torch.exec import quant
+from repro_torch.models.gcn import GCNConfig, init_params
+from repro_torch.serve.batcher import BucketLadder, MicroBatcher, PaddedRequest
+from repro_torch.serve.registry import ArtifactRegistry, graph_key
+from repro_torch.serve.sampler import SubgraphSampler
+
+
+@dataclasses.dataclass
+class LatencyReport:
+    scenario: str
+    n_requests: int
+    p50_ms: float
+    p99_ms: float
+    req_per_s: float
+    tok_per_s: float          # answered seed logits per second
+
+    def line(self) -> str:
+        return (
+            f"{self.scenario}: {self.n_requests} requests, "
+            f"p50 {self.p50_ms:.2f} ms, p99 {self.p99_ms:.2f} ms, "
+            f"{self.req_per_s:.1f} req/s, {self.tok_per_s:.1f} tok-equiv/s"
+        )
+
+
+def latency_report(
+    scenario: str, latencies_s: Sequence[float], total_seeds: int,
+    wall_s: Optional[float] = None,
+) -> LatencyReport:
+    if len(latencies_s) == 0:
+        return LatencyReport(scenario, 0, 0.0, 0.0, 0.0, 0.0)
+    lat_ms = np.asarray(latencies_s, dtype=np.float64) * 1e3
+    wall = wall_s if wall_s is not None else float(np.sum(lat_ms) / 1e3)
+    wall = max(wall, 1e-9)
+    return LatencyReport(
+        scenario=scenario,
+        n_requests=len(lat_ms),
+        p50_ms=float(np.percentile(lat_ms, 50)),
+        p99_ms=float(np.percentile(lat_ms, 99)),
+        req_per_s=len(lat_ms) / wall,
+        tok_per_s=total_seeds / wall,
+    )
+
+
+def close_batches(buckets: Sequence, max_batch: int) -> List[List[int]]:
+    """Indices of the requests each coalesced forward takes, in order.
+
+    The batches the reference's runtime closes for requests submitted
+    together with no deadline: requests grouped per bucket in arrival
+    order (buckets in first-seen order); every group closes ``max_batch``
+    at a time while it is full, then what is left of each group closes in
+    ``max_batch`` chunks.
+    """
+    groups: Dict[object, List[int]] = {}
+    for i, bucket in enumerate(buckets):
+        groups.setdefault(bucket, []).append(i)
+    closed = []
+    for members in groups.values():
+        while len(members) >= max_batch:
+            closed.append(members[:max_batch])
+            del members[:max_batch]
+    for members in groups.values():
+        closed.extend(members[lo: lo + max_batch]
+                      for lo in range(0, len(members), max_batch))
+    return closed
+
+
+class ServeEngine:
+    """Batched GCN inference over one graph."""
+
+    def __init__(
+        self,
+        adj_norm: CSRMatrix,
+        features: np.ndarray,
+        cfg: GCNConfig,
+        *,
+        params=None,
+        registry: Optional[ArtifactRegistry] = None,
+        ladder: Optional[BucketLadder] = None,
+        hops: Optional[int] = None,
+        fanout: Optional[int] = 32,
+        max_batch: int = 8,
+        max_seeds: int = 16,
+        base_bucket_nodes: int = 256,
+        sampler_seed: int = 0,
+        mesh=None,
+        autoplan: bool = False,
+        ladder_growth=4,
+        precision: str = "f32",
+        fused: Optional[bool] = None,
+        feedback=None,
+        device=None,
+    ):
+        if precision == "auto":
+            raise NotImplementedError(
+                "precision='auto' picks each rung's precision with the cost "
+                "model: ROADMAP item A8 (planning), not ported yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.adj_norm = adj_norm
+        self.features = np.asarray(features, dtype=np.float32)
+        # the full-graph step's features, moved to the device once
+        self._features_dev = torch.as_tensor(self.features, device=self.device)
+        self.registry = registry or ArtifactRegistry()
+        if params is None:
+            params = init_params(cfg, device=self.device)
+        self.params = {
+            name: {k: torch.as_tensor(v, device=self.device)
+                   for k, v in layer.items()}
+            for name, layer in params.items()
+        }
+        self.precision = quant.validate_precision(precision)
+        self._graph_key = graph_key(adj_norm, cfg)
+        # Full-graph artifact: preprocessed once per content key, persisted.
+        self.graph = self.registry.get_or_build(
+            adj_norm, cfg, persist=True, key=self._graph_key)
+        self._full_step = self.registry.forward_step(
+            adj_norm, cfg, precision=self.precision, device=self.device)
+        self.sampler = SubgraphSampler(
+            adj_norm,
+            cfg,
+            hops=hops,
+            fanout=fanout,
+            seed=sampler_seed,
+            registry=self.registry,
+        )
+        self.batcher = MicroBatcher(
+            cfg,
+            ladder
+            or BucketLadder.for_graph(self.graph, cfg,
+                                      base_nodes=base_bucket_nodes,
+                                      growth=ladder_growth),
+            max_batch=max_batch,
+            max_seeds=max_seeds,
+            mesh=mesh,
+            autoplan=autoplan,
+            precision=self.precision,
+            fused=fused,
+            feedback=feedback,
+            device=self.device,
+        )
+        self.timings: Dict[str, List[float]] = {}
+        self.seeds_served: Dict[str, int] = {}
+        self.wall: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def from_dataset(
+        name: str,
+        cfg: Optional[GCNConfig] = None,
+        hidden_dim: int = 64,
+        spmm_impl: str = "reference",
+        **kw,
+    ) -> "ServeEngine":
+        """Build an engine for a named dataset; in/out dims come from the
+        dataset spec, ``hidden_dim``/``spmm_impl`` from the caller (or pass
+        a full ``cfg`` to control everything)."""
+        from repro_torch.graphs.datasets import load_dataset
+
+        ds = load_dataset(name)
+        if cfg is None:
+            cfg = GCNConfig(
+                in_dim=ds.spec.feature_dim,
+                hidden_dim=hidden_dim,
+                out_dim=ds.spec.classes,
+                spmm_impl=spmm_impl,
+            )
+        return ServeEngine(ds.adj_norm, ds.features, cfg, **kw)
+
+    # ------------------------------------------------------------------
+
+    def warmup(
+        self,
+        *,
+        max_nodes: Optional[int] = None,
+        batch_sizes: Optional[List[int]] = None,
+    ) -> int:
+        """Build the (bucket x batch) executables, and run the full-graph
+        step once.
+
+        After this returns, any query whose subgraph fits a built bucket
+        runs with zero new executables (``compile_count`` is the proof).
+
+        With ``max_nodes`` unset and a fanout cap active, warmup derives
+        the reachable rungs from the sampler's bounds instead of building
+        the whole ladder: at most max_seeds * sum fanout^i (i <= hops)
+        nodes can enter a receptive field, and — because the induced
+        subgraph keeps every edge among selected nodes — the ELL-row bound
+        is taken from the sum over the N globally highest-degree nodes of
+        the per-row vertex-cut worst case (<= 2 * ceil(deg/tau) sub-rows).
+        Every rung up to the first satisfying *both* bounds is built.
+        Uncapped fanout builds every rung.
+        """
+        if max_nodes is None and self.sampler.fanout is not None:
+            f, h = self.sampler.fanout, self.sampler.hops
+            bound_nodes = min(
+                self.batcher.max_seeds * sum(f**i for i in range(h + 1)),
+                self.graph.n_nodes,
+            )
+            per_node = np.sort(-(-self.adj_norm.row_nnz() // self.cfg.tau))[::-1]
+            br = self.cfg.block_rows
+            bound_rows = -(-int(2 * per_node[:bound_nodes].sum()) // br) * br
+            for b in self.batcher.ladder.entries:
+                max_nodes = b.nodes
+                if b.nodes >= bound_nodes and b.rows >= bound_rows:
+                    break
+        built = self.batcher.warmup(
+            self.params,
+            self.features.shape[1],
+            max_nodes=max_nodes,
+            batch_sizes=batch_sizes,
+        )
+        self._full_step(self.params, self._features_dev).cpu()
+        return built
+
+    @property
+    def compile_count(self) -> int:
+        """Bucketed-path executables (CUDA graph captures on the card)
+        built so far: the recompile monitor."""
+        return self.batcher.compiles
+
+    @property
+    def graph_key(self) -> str:
+        """Content hash identifying this engine's graph."""
+        return self._graph_key
+
+    # ------------------------------------------------------------------
+    # Scenarios
+    # ------------------------------------------------------------------
+
+    def full_forward(self) -> np.ndarray:
+        """Full-graph logits for every node (original node order)."""
+        t0 = time.perf_counter()
+        out = self._full_step(self.params, self._features_dev).cpu().numpy()
+        self._record("full", [time.perf_counter() - t0], self.graph.n_nodes)
+        return out
+
+    def query(self, seeds: Sequence[int]) -> np.ndarray:
+        """Logits for ``seeds`` via sampled-subgraph inference."""
+        t0 = time.perf_counter()
+        req = self._prepare(seeds)
+        out = self.batcher.run(self.params, [req])[0]
+        self._record("query", [time.perf_counter() - t0], len(out))
+        return out
+
+    def query_batch(self, requests: Sequence[Sequence[int]]) -> List[np.ndarray]:
+        """Answer many seed queries, coalescing per shape bucket.
+
+        Requests are grouped as the reference's runtime groups requests
+        submitted together with no deadline (:func:`close_batches`).
+        Per-request latency spans its own extraction plus the coalesced
+        forward it rode in (requests in one chunk share that cost), so the
+        latency sum over-counts shared time; throughput uses the actual
+        wall clock of the whole call.
+        """
+        t_call = time.perf_counter()
+        prepared, prep_s = [], []
+        for seeds in requests:
+            t0 = time.perf_counter()
+            prepared.append(self._prepare(seeds))
+            prep_s.append(time.perf_counter() - t0)
+        outputs: List[Optional[np.ndarray]] = [None] * len(prepared)
+        lats = list(prep_s)
+        for chunk in close_batches([r.bucket for r in prepared],
+                                   self.batcher.max_batch):
+            t0 = time.perf_counter()
+            outs = self.batcher.run(self.params, [prepared[i] for i in chunk])
+            exec_s = time.perf_counter() - t0
+            for i, out in zip(chunk, outs):
+                outputs[i] = out
+                lats[i] += exec_s
+        n_seeds = sum(len(o) for o in outputs)
+        self._record("batch", lats, n_seeds, wall=time.perf_counter() - t_call)
+        return outputs
+
+    def runtime(self, **kw):
+        raise NotImplementedError(
+            "runtime(): the async deadline-aware runtime is ROADMAP item A10, "
+            "not ported yet")
+
+    def servable(self, key: Optional[str] = None, **kw):
+        raise NotImplementedError(
+            "servable(): the servable fleet is ROADMAP item A12, not ported "
+            "yet")
+
+    # ------------------------------------------------------------------
+
+    def _prepare(self, seeds: Sequence[int]) -> PaddedRequest:
+        sub = self.sampler.extract(seeds)
+        return self.batcher.prepare(sub, self.features[sub.nodes])
+
+    def _record(
+        self, scenario: str, lats: List[float], seeds: int,
+        wall: Optional[float] = None,
+    ) -> None:
+        self.timings.setdefault(scenario, []).extend(lats)
+        self.seeds_served[scenario] = self.seeds_served.get(scenario, 0) + seeds
+        # Coalesced calls pass true elapsed time; per-request scenarios'
+        # wall is the latency sum (requests ran back to back).
+        self.wall[scenario] = self.wall.get(scenario, 0.0) + (
+            wall if wall is not None else float(np.sum(lats))
+        )
+
+    def report(self, scenario: str, wall_s: Optional[float] = None) -> LatencyReport:
+        """Latency/throughput summary; ``wall_s`` overrides the recorded
+        per-call wall time (e.g. to include inter-request think time)."""
+        return latency_report(
+            scenario,
+            self.timings.get(scenario, []),
+            self.seeds_served.get(scenario, 0),
+            wall_s=wall_s if wall_s is not None else self.wall.get(scenario),
+        )
+
+    def reset_timings(self) -> None:
+        self.timings.clear()
+        self.seeds_served.clear()
+        self.wall.clear()

@@ -340,3 +340,145 @@ def test_cuda_aggregation_multi_slab(cuda_device, precision):
         ref = fv.PLAIN[name](*args, **kw)
         torch.cuda.synchronize()
         assert rel_max_err(out, ref) <= TOL[name.replace("_scaled", "")], name
+
+
+# -- serving: the micro-batcher's CUDA graphs --------------------------------
+
+
+def _serve_engines(device, cache_dir, precision="f32", fused=None, seed=1):
+    """A serving engine on the card and one on the CPU (plain versions)
+    over the toy graph of ``tests/test_serve.py``, with the same random
+    parameters (from ``seed``) and one registry persisting to
+    ``cache_dir``; fanout 4, rungs of 128 and 512 nodes."""
+    from repro_torch.graphs.datasets import (DatasetSpec, gcn_normalize,
+                                             synthesize_adjacency)
+    from repro_torch.serve import ArtifactRegistry, ServeEngine
+
+    spec = DatasetSpec("toy", nodes=400, edges=1_600, feature_dim=32,
+                       classes=5)
+    adj = gcn_normalize(synthesize_adjacency(spec, seed=7))
+    feats = np.random.default_rng(7).standard_normal((400, 32)).astype(
+        np.float32)
+    cfg = GCNConfig(in_dim=32, hidden_dim=8, out_dim=5, spmm_impl="cuda")
+    params = _serve_params(seed)
+    registry = ArtifactRegistry(cache_dir=str(cache_dir))
+    kw = dict(fanout=4, max_seeds=4, max_batch=4, base_bucket_nodes=64,
+              precision=precision, fused=fused, registry=registry)
+    return (ServeEngine(adj, feats, cfg, params=params_from_numpy(params, device),
+                        device=device, **kw),
+            ServeEngine(adj, feats, cfg, params=params_from_numpy(params, "cpu"),
+                        device="cpu", **kw))
+
+
+def _serve_params(seed):
+    rng = np.random.default_rng(seed)
+    return {f"layer_{i}": {"w": rng.standard_normal(s).astype(np.float32),
+                           "b": rng.standard_normal(s[1]).astype(np.float32)}
+            for i, s in enumerate([(32, 8), (8, 5)])}
+
+
+def _serve_requests(n, seed=3):
+    rng = np.random.default_rng(seed)
+    return [rng.choice(400, size=int(rng.integers(1, 5)), replace=False)
+            for _ in range(n)]
+
+
+def _assert_answers_agree(got, want, precision):
+    got = torch.as_tensor(np.concatenate(got))
+    want = torch.as_tensor(np.concatenate(want))
+    if precision == "f32":
+        assert rel_max_err(got, want) <= 1e-4
+    else:
+        assert rel_max_err(got, want) <= QUANT_FORWARD_TOL
+        assert flip_share(got, want) <= FORWARD_FLIP_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [None, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_cuda_serve_captures_and_replays(cuda_device, tmp_path, precision,
+                                        fused):
+    """Warmup captures one CUDA graph per (rung, batch); queries and
+    batches then replay them (no capture after warmup) and answer as the
+    same engine on the CPU does."""
+    from repro_torch.serve.batcher import _CapturedForward
+
+    card, cpu = _serve_engines(cuda_device, tmp_path, precision, fused)
+    built = card.warmup()
+    assert built == len(card.batcher._executables) > 0
+    assert all(isinstance(e, _CapturedForward) and
+               isinstance(e.graph, torch.cuda.CUDAGraph)
+               for e in card.batcher._executables.values())
+    reqs = _serve_requests(24)
+    got = [card.query(s) for s in reqs[:8]] + card.query_batch(reqs[8:])
+    want = [cpu.query(s) for s in reqs[:8]] + cpu.query_batch(reqs[8:])
+    assert card.compile_count == built
+    _assert_answers_agree(got, want, precision)
+    # each graph keeps one forward's launches; every run replayed one
+    exes = card.batcher._executables.values()
+    kernel = "spmm_ell_fused_dense_grid" if fused else "spmm_ell_dense_grid"
+    kernel += ("_scaled" if precision == "int8" else "") + f"@{precision}"
+    assert all(e.launches.get(kernel, 0) > 0 for e in exes)
+    assert sum(e.replays for e in exes) == card.batcher.calls > 0
+    assert card.batcher.clear_executables() == built
+
+
+@pytest.mark.cuda
+def test_cuda_serve_replays_the_callers_parameters(cuda_device, tmp_path):
+    """Parameters are inputs of a captured rung, not constants: two
+    parameter sets through one warmed rung give two outputs, each equal
+    to the eager forward with its parameters."""
+    card, cpu = _serve_engines(cuda_device, tmp_path)
+    card.warmup()
+    seeds = _serve_requests(1)[0]
+    other = _serve_params(seed=9)
+    first = card.query(seeds)
+    card.params = params_from_numpy(other, cuda_device)
+    cpu_other = params_from_numpy(other, "cpu")
+    second = card.query(seeds)
+    assert card.compile_count == len(card.batcher._executables)
+    _assert_answers_agree([first], [cpu.query(seeds)], "f32")
+    cpu.params = cpu_other
+    _assert_answers_agree([second], [cpu.query(seeds)], "f32")
+    assert rel_max_err(torch.as_tensor(second), torch.as_tensor(first)) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_cuda_serve_fused_rungs_pad_slots_with_empty_chunks(cuda_device,
+                                                            tmp_path,
+                                                            precision):
+    """A fused rung's slot buffers hold the rung's chunk bound; the chunks
+    past the requests' are empty (start == next start) and add nothing,
+    at every batch fill from one request to a full batch."""
+    card, cpu = _serve_engines(cuda_device, tmp_path, precision, fused=True)
+    card.warmup()
+    reqs = _serve_requests(16, seed=5)
+    batcher = card.batcher
+    for n in (1, 2, 3, 4):
+        bucket = card._prepare(reqs[0]).bucket
+        group = [s for s in reqs if card._prepare(s).bucket == bucket][:n]
+        same = [card._prepare(s) for s in group]
+        batch = batcher.pad_batch(len(same))
+        assert sum(p.slots[0].size for p in same) < \
+            batch * batcher.chunk_bound(bucket)
+        got = batcher.run(card.params, same)
+        want = cpu.batcher.run(cpu.params, [cpu._prepare(s) for s in group])
+        _assert_answers_agree(got, want, precision)
+    assert card.compile_count == len(batcher._executables)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_replay_answers_the_new_request(cuda_device, tmp_path):
+    """A replay fed a second request returns that request's logits, not
+    the first's (the static inputs are refilled on every run)."""
+    card, cpu = _serve_engines(cuda_device, tmp_path)
+    card.warmup()
+    reqs = _serve_requests(12, seed=11)
+    bucket = card._prepare(reqs[0]).bucket
+    second = next(s for s in reqs[1:] if set(s) != set(reqs[0])
+                  and card._prepare(s).bucket == bucket)
+    a, b = card.query(reqs[0]), card.query(second)
+    assert b.shape == (len(second), 5)
+    _assert_answers_agree([a], [cpu.query(reqs[0])], "f32")
+    _assert_answers_agree([b], [cpu.query(second)], "f32")

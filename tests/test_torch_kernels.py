@@ -364,6 +364,27 @@ def test_column_slots_cut_hub_groups_into_chunks():
         assert (flat[chunk] // 64 == g).all() and (np.diff(chunk) > 0).all()
 
 
+@pytest.mark.parametrize("case", ["uniform", "hub", "sparse_with_hub"])
+def test_max_column_chunks_bounds_column_slots(case):
+    """``max_column_chunks`` (the serving batcher's per-rung chunk bound)
+    is never below the chunks ``column_slots`` cuts, also where a hub
+    group is cut into many chunks of the shortest length."""
+    rng = np.random.default_rng(3)
+    k = 6400 if case == "sparse_with_hub" else 640
+    cols = rng.integers(0, k, (3000, 6)).astype(np.int32)
+    if case == "hub":
+        cols[:2000, :3] = 5
+    elif case == "sparse_with_hub":
+        # ~30 slots per group: the hub group is cut at MIN_CHUNK_SLOTS
+        cols[:, 1:] = -1
+        cols[:2000, 0] = 5
+    group, _, _ = tfv.column_slots(cols, k)
+    assert group.size <= tfv.max_column_chunks(k, cols.size)
+    if case == "sparse_with_hub":
+        hub = int((cols[:, 0] < tfv.XW_TILE_ROWS).sum())
+        assert (group == 0).sum() == -(-hub // tfv.MIN_CHUNK_SLOTS) > 1
+
+
 # -- the fused kernels' order of sums, emulated on the CPU ---------------------
 #
 # The CUDA fused kernels form X W + b per 64-row column group and add

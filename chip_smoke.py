@@ -70,9 +70,32 @@ Phases, in order; any failure exits non-zero:
    full-graph rows.  Prints n, p50 and (from 100 requests up) p99 per
    scenario, requests/s and the batch's device idle share.
 
-Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line
-and one ``{"serving": ...}`` line, then as the last line
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+6. Planning: the cost model on the H100 model (``plan.cost.H100``) over
+   the same graph with the ``cuda`` config.  At f32, bf16 and int8 it
+   plans the pipeline (``exec.pipeline.plan_pipeline``: each layer's
+   impl, blocks, fusion and k-order, the candidates priced and the host
+   seconds it took) and runs ``gcn_forward(plan="auto")`` once with the
+   launch counts reset just before and read just after: the chosen
+   kernels, and no other, must have launched; the logits are held against
+   the reference impl at phase 4's limits.  Then it times the chosen
+   pipeline, the static unfused and the static fused plan in interleaved
+   rounds (300 at PubMed, 20 at Reddit), each median beside the model's
+   ms and the measured-to-modeled ratio: each chosen forward must be
+   within 10% of the static unfused one.  At Reddit the f32 choice must
+   be unfused and the model within 0.5x-2x of the chosen and static
+   unfused forwards.  At PubMed one engine with ``autoplan=True``,
+   ``precision="auto"`` and ``ladder_growth="auto"`` (the registry of
+   phase 3, the serving CLI's other defaults) prints each warmed rung's
+   plans and precision and the full-graph step's modeled ms per
+   precision; its full-graph step, timed against its f32 step over 300
+   interleaved rounds, must be within 10% of it.  It serves 100 queries
+   and 100 batched requests that phase 5 did not, captures nothing after
+   warmup and answers as an ``impl="reference"`` engine at the same
+   precisions does, within phase 5's limits.
+
+Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
+one ``{"serving": ...}`` line and one ``{"planning": ...}`` line, then as
+the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -195,6 +218,19 @@ SERVE_ENGINES = {
                ("cuda", "int8", False), ("cuda", "int8", True)),
     "reddit": (("cuda", "f32", False), ("cuda", "int8", True)),
 }
+# Phase 6: planning.  The requests of the autoplanned PubMed engine, the
+# limits of the H100 model's modeled ms against the measured ms of the
+# Reddit forwards, and how much slower than the static unfused forward
+# the chosen one may be (at PubMed and Reddit), and the autoplanned
+# engine's full-graph step than its f32 step.
+PLAN_LOAD = dict(queries=100, batch=100)
+MODEL_RATIO = (0.5, 2.0)
+PLAN_SLOWER = 1.10
+# Phase 6 times the forwards it compares in interleaved rounds, one of
+# each per round, and holds their medians: PubMed's forwards take ~0.5-2
+# ms of mostly host time, so it takes hundreds of rounds to rise above
+# the host's noise; Reddit's take 8-16 ms of device time.
+PLAN_ROUNDS = {"pubmed": 300, "reddit": 20}
 # Kernel names in the profile of a replayed batch (csrc/flexvector_spmm.cu),
 # and names of library sparse kernels that must not appear there.
 AGGREGATION_KERNEL = "ell_aggregate_kernel"
@@ -896,7 +932,7 @@ def eager_answers(torch, engine, subs, precision=None) -> list:
 
 
 def hold(torch, np, key: str, what: str, got, want, precision: str,
-         flip_share: float) -> dict:
+         flip_share: float, phase: int = 5) -> dict:
     """``got`` vs ``want`` (lists of logits) within FORWARD_REL_TOL at
     ``precision`` and ``flip_share``; prints and returns the reading."""
     check(all(a.shape == b.shape for a, b in zip(got, want))
@@ -904,7 +940,7 @@ def hold(torch, np, key: str, what: str, got, want, precision: str,
     got, want = np.concatenate(got), np.concatenate(want)
     check(bool(np.isfinite(got).all()), f"{key}: non-finite answers ({what})")
     reading = agreement(torch, torch.as_tensor(got), torch.as_tensor(want))
-    print(f"phase 5: {key} {what}: {describe(reading)} (limits rel "
+    print(f"phase {phase}: {key} {what}: {describe(reading)} (limits rel "
           f"{FORWARD_REL_TOL[precision]}, flip share {flip_share})")
     check(agrees(reading, FORWARD_REL_TOL[precision], flip_share),
           f"{key} disagrees ({what}): {describe(reading)}")
@@ -1241,6 +1277,234 @@ def phase_serving(torch, np, fv, registry, data, cfg, params, dev,
     return {"engines": out, "skipped": [list(e) for e in skipped]}
 
 
+# -- phase 6: planning ---------------------------------------------------------
+
+
+def plan_kernels(pplan) -> set:
+    """The ``fv.PRECISION_LAUNCHES`` keys a pipeline plan launches."""
+    keys = set()
+    for lp in pplan.layers:
+        plan = lp.spmm
+        if plan.impl == "reference":
+            continue
+        grid = "sparse" if plan.impl == "cuda_sparse" else "dense"
+        name = (f"spmm_ell_fused_{grid}_grid" if plan.fused
+                else f"spmm_ell_{grid}_grid")
+        if plan.precision == "int8":
+            name += "_scaled"
+        keys.add(f"{name}@{plan.precision}")
+    return keys
+
+
+def describe_plan(pplan) -> list:
+    return [{"impl": lp.spmm.impl, "blocks": [lp.spmm.block_rows,
+                                               lp.spmm.block_k,
+                                               lp.spmm.block_f],
+             "fused": lp.spmm.fused, "hot_k_first": lp.spmm.hot_k_first,
+             "precision": lp.spmm.precision, "modeled_ms": 1e3 * lp.seconds}
+            for lp in pplan.layers]
+
+
+def timed_rounds(torch, fns: dict, rounds: int) -> dict:
+    """Median host ms of each of ``fns`` (name -> callable), called in
+    ``rounds`` interleaved rounds (each call ending in a synchronize)
+    after one warm round."""
+    times = {name: [] for name in fns}
+    for i in range(1 + rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
+                   dev, dataset: str) -> dict:
+    """Phase 6: ``plan="auto"`` forwards at every precision (plans,
+    launches, answers, times beside the model's), then at PubMed one
+    autoplanned engine with ``precision="auto"``.  Everything plans on
+    the H100 model, passed explicitly."""
+    from repro_torch.exec.pipeline import (pipeline_seconds, plan_pipeline,
+                                           static_pipeline)
+    from repro_torch.exec.plan import SpmmPlan
+    from repro_torch.models.gcn import gcn_forward
+    from repro_torch.plan import cost
+
+    cfg = dataclasses.replace(cfg, spmm_impl="cuda")
+    blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
+                  block_f=cfg.block_f)
+    model = cost.H100
+    print(f"phase 6: device model {model.name}: "
+          f"{dataclasses.asdict(model.cuda)}")
+    stats = cost.graph_stats_from_ell(graph.pre.ell)
+    forwards = {}
+    rounds = PLAN_ROUNDS[dataset]
+    for precision in PRECISIONS:
+        t0 = time.perf_counter()
+        pplan = plan_pipeline(cfg, graph.pre.ell, precision=precision,
+                              device=model)
+        plan_s = time.perf_counter() - t0
+        layers = describe_plan(pplan)
+        print(f"phase 6: {precision} plan {json.dumps(layers)}; "
+              f"{pplan.n_candidates} candidates priced in {plan_s:.3f} s of "
+              f"host time; modeled {1e3 * pplan.cost_seconds:.3f} ms vs "
+              f"static {1e3 * pplan.static_cost_seconds:.3f} ms")
+        fv.reset_launches()
+        out = gcn_forward(params, graph, feats, cfg, plan="auto",
+                          precision=precision, device=dev,
+                          device_model=model)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n}
+        want = plan_kernels(pplan)
+        print(f"phase 6: {precision} plan='auto' launched {counts}, the plan "
+              f"names {sorted(want)}")
+        check(set(counts) == want, f"{precision} plan='auto' launched "
+              f"{sorted(counts)}, its plan names {sorted(want)}")
+        check(tuple(out.shape) == (graph.n_nodes, cfg.out_dim)
+              and bool(torch.isfinite(out).all()),
+              f"{precision} plan='auto': logits")
+        ref = gcn_forward(params, graph, feats, cfg,
+                          plan=SpmmPlan(impl="reference", **blocks),
+                          precision=precision, device=dev)
+        got = agreement(torch, out, ref)
+        print(f"phase 6: {precision} plan='auto' vs the reference impl "
+              f"{describe(got)}")
+        check(agrees(got, FORWARD_REL_TOL[precision], FORWARD_FLIP_SHARE),
+              f"{precision} plan='auto' disagrees with the reference impl: "
+              f"{describe(got)}")
+        plans = {"chosen": pplan,
+                 "static_unfused": static_pipeline(cfg, precision=precision),
+                 "static_fused": static_pipeline(cfg, precision=precision,
+                                                 fused=True)}
+        medians = timed_rounds(torch, {
+            label: (lambda pp=pp: gcn_forward(params, graph, feats, cfg,
+                                              plan=pp, device=dev))
+            for label, pp in plans.items()}, rounds)
+        timed = {}
+        for label, pp in plans.items():
+            ms = medians[label]
+            modeled = 1e3 * pipeline_seconds(stats, pp, device=model)
+            timed[label] = {"measured_ms": ms, "modeled_ms": modeled,
+                            "measured_over_modeled": ms / modeled}
+            print(f"phase 6: {precision} {label} forward median {ms:.3f} ms "
+                  f"over {rounds} interleaved rounds, modeled {modeled:.3f} "
+                  f"ms (measured / modeled {ms / modeled:.3f})")
+        limit = PLAN_SLOWER * timed["static_unfused"]["measured_ms"]
+        check(timed["chosen"]["measured_ms"] <= limit, f"{precision}: "
+              f"the chosen forward {timed['chosen']['measured_ms']:.3f} ms "
+              f"is more than {PLAN_SLOWER}x the static unfused one")
+        if dataset == "reddit":
+            if precision == "f32":
+                check(not any(lp.spmm.fused for lp in pplan.layers),
+                      "at Reddit f32 the planner fused a layer")
+            for label in ("chosen", "static_unfused"):
+                r = timed[label]["measured_over_modeled"]
+                check(MODEL_RATIO[0] <= r <= MODEL_RATIO[1],
+                      f"{precision} {label}: measured / modeled {r:.3f} "
+                      f"outside {MODEL_RATIO}")
+        forwards[precision] = {"plan": layers, "n_candidates":
+                               pplan.n_candidates, "plan_host_s": plan_s,
+                               "launches": counts, "vs_reference": got,
+                               "forwards": timed}
+    serving = (planned_serving(torch, np, registry, data, cfg, params, dev)
+               if dataset == "pubmed" else None)
+    return {"device_model": model.name,
+            "rates": dataclasses.asdict(model.cuda),
+            "rounds": rounds, "forwards": forwards, "serving": serving}
+
+
+def planned_serving(torch, np, registry, data, cfg, params, dev) -> dict:
+    """One engine with ``autoplan=True, precision="auto",
+    ladder_growth="auto"`` at the serving CLI's other defaults, against
+    an ``impl="reference"`` engine with its ladder and precisions."""
+    from repro_torch.plan import cost
+    from repro_torch.serve import ServeEngine
+
+    before = registry.stats.builds
+    t0 = time.perf_counter()
+    engine = ServeEngine(data.adj_norm, data.features, cfg, params=params,
+                         registry=registry, device=dev, autoplan=True,
+                         precision="auto", ladder_growth="auto",
+                         device_model=cost.H100, **SERVE)
+    built = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    check(registry.stats.builds == before, "the autoplanned engine "
+          "preprocessed the dataset again")
+    batcher = engine.batcher
+    rungs = sorted({k[0] for k in batcher._executables})
+    errs = {p: float(e) for p, e in engine.precision_errors.items()}
+    print(f"phase 6: autoplanned engine ladder "
+          f"{[(b.nodes, b.rows) for b in batcher.ladder.entries]}; "
+          f"{built} CUDA graphs captured in {warm_s:.1f} s; measured logit "
+          f"errors {errs}; full graph at {engine.resolved_precision}")
+    # the full-graph step's precision is priced, then measured against f32
+    full_modeled = {p: 1e3 * engine.full_step_seconds(p) for p in errs}
+    steps = {p: engine._step(p) for p in {"f32", engine.resolved_precision}}
+    full_ms = timed_rounds(torch, {
+        p: (lambda step=step: step(engine.params, engine._features_dev))
+        for p, step in steps.items()}, PLAN_ROUNDS["pubmed"])
+    print(f"phase 6: full-graph step modeled ms {full_modeled}; measured "
+          f"median ms {full_ms} over {PLAN_ROUNDS['pubmed']} interleaved "
+          "rounds")
+    check(full_ms[engine.resolved_precision] <= PLAN_SLOWER * full_ms["f32"],
+          f"the autoplanned engine's full-graph step at "
+          f"{engine.resolved_precision} ({full_ms[engine.resolved_precision]:.3f}"
+          f" ms) is more than {PLAN_SLOWER}x its f32 step "
+          f"({full_ms['f32']:.3f} ms)")
+    rung_plans = {}
+    for b in rungs:
+        plans = [(p.effective_impl, p.block_rows, p.block_k, p.block_f,
+                  p.fused) for p in batcher.layer_plans_for_bucket(
+                      b, data.features.shape[1])]
+        rung_plans[f"{b.nodes}x{b.rows}"] = {
+            "precision": batcher.precision_for_bucket(b), "layers": plans}
+        print(f"phase 6: rung {b.nodes}x{b.rows} at "
+              f"{batcher.precision_for_bucket(b)}: layers {plans}")
+    n_used = sum(SERVE_LOAD["pubmed"][k] for k in ("queries", "batch"))
+    n_used *= len(SERVE_ENGINES["pubmed"])
+    requests = serve_draws(np, data.adj_norm.rows,
+                           [n_used, PLAN_LOAD["queries"] + PLAN_LOAD["batch"]])[1]
+    full, answers = serve_answers(engine, requests, PLAN_LOAD["queries"], 1)
+    check(engine.compile_count == built, f"the autoplanned engine captured "
+          f"{engine.compile_count - built} graphs after warmup")
+    ref = ServeEngine(data.adj_norm, data.features,
+                      dataclasses.replace(cfg, spmm_impl="reference"),
+                      params=params, registry=registry, device=dev,
+                      ladder=batcher.ladder,
+                      precision=engine.resolved_precision, **SERVE)
+    for b in batcher.ladder.entries:
+        ref.batcher.set_bucket_precision(b, batcher.precision_for_bucket(b))
+    ref_full, ref_answers = serve_answers(ref, requests, PLAN_LOAD["queries"],
+                                          1)
+    key = "autoplanned engine"
+    prec = engine.resolved_precision
+    out = {"full_vs_reference": hold(
+        torch, np, key, "full graph vs the reference impl", [full],
+        [ref_full], prec, FORWARD_FLIP_SHARE, phase=6)}
+    groups = {}
+    for i, seeds in enumerate(requests):
+        sub = engine.sampler.extract(seeds)
+        b = batcher.ladder.bucket_for(sub.n_sub_nodes, sub.n_ell_rows)
+        groups.setdefault(batcher.precision_for_bucket(b), []).append(i)
+    for p, idx in sorted(groups.items()):
+        out[f"vs_reference@{p}"] = hold(
+            torch, np, key, f"{len(idx)} answers at {p} vs the reference impl",
+            [answers[i] for i in idx], [ref_answers[i] for i in idx], p,
+            SERVE_FLIP_SHARE[p], phase=6)
+    batcher.clear_executables()
+    ref.batcher.clear_executables()
+    return {"ladder": [[b.nodes, b.rows] for b in batcher.ladder.entries],
+            "captures": built, "warmup_s": warm_s,
+            "post_warmup_captures": engine.compile_count - built,
+            "precision_errors": errs,
+            "full_graph_precision": engine.resolved_precision,
+            "full_graph_modeled_ms": full_modeled,
+            "full_graph_measured_ms": full_ms,
+            "rungs": rung_plans, "requests": len(requests), **out}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -1270,7 +1534,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-5 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-6 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -1317,6 +1581,10 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(f"phase 5: {time.perf_counter() - t5:.1f} s; registry builds "
           f"{registry.stats.builds} (the dataset once, then each distinct "
           f"subgraph), mem_hits {registry.stats.mem_hits}")
+    t6 = time.perf_counter()
+    planning = phase_planning(torch, np, fv, registry, data, graph, cfg,
+                              params, feats, dev, args.dataset)
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -1374,6 +1642,8 @@ def drive(torch, np, args, cache_dir: str) -> int:
         "skipped_engines": phase5["skipped"],
         "uncapped_small_graph": uncapped,
         "registry": dataclasses.asdict(registry.stats)}}))
+    print(json.dumps({"planning": dict(planning, dataset=args.dataset,
+                                       card=card)}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

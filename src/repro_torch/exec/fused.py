@@ -170,10 +170,11 @@ def fused_args(
         kw["cast_xw"] = xw_cast
     if plan.effective_impl == "cuda_sparse":
         kb_ids = operands.memo(
-            ("fused_k_schedule", plan.block_rows, plan.block_k),
+            ("fused_k_schedule", plan.block_rows, plan.block_k,
+             plan.hot_k_first),
             lambda: torch.as_tensor(
                 plan_fused_k_schedule(operands.ell, plan.block_rows,
-                                      plan.block_k),
+                                      plan.block_k, plan.hot_k_first),
                 dtype=torch.int32, device=operands.device),
         )
         return ("spmm_ell_fused_sparse_grid" + suffix, args + (kb_ids,), kw,

@@ -8,8 +8,10 @@ over a :class:`TiledELL`, so operands without one degrade to the
 dense-grid ``cuda`` kernel, with a warning and the switch recorded on the
 resolved plan.
 
-The mesh, ``plan="auto"``, the output layouts and feature-axis sharding
-of the reference plan are not ported yet.
+:func:`plan_for_config` builds the static plan from a config, or, given
+the host ELL, the cost model's choice (``repro_torch.plan.autoplan``).
+The mesh, the output layouts and feature-axis sharding of the reference
+plan wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class SpmmPlan:
     block_rows: int = 128
     block_k: int = 128
     block_f: int = 128
+    hot_k_first: bool = True          # sparse-grid schedule: hot k-tiles lead
     precision: str = "f32"            # storage precision (exec.quant)
     fused: bool = False               # fuse combination + aggregation per layer
     effective_impl: Optional[str] = None
@@ -85,10 +88,35 @@ class SpmmPlan:
         )
 
 
-def plan_for_config(cfg) -> SpmmPlan:
-    """The static plan of a :class:`~repro_torch.models.gcn.GCNConfig`-like
+def plan_for_config(
+    cfg,
+    *,
+    ell=None,
+    feature_dim: Optional[int] = None,
+    n_devices: Optional[int] = None,
+) -> SpmmPlan:
+    """Build a plan from a :class:`~repro_torch.models.gcn.GCNConfig`-like
     object (anything with ``spmm_impl``/``block_rows``/``block_k``/
-    ``block_f``)."""
+    ``block_f``).
+
+    Without ``ell`` this is the *static* plan: the config's impl and block
+    sizes.  With ``ell`` (a host
+    :class:`~repro_torch.core.sparse_formats.TiledELL`) the choice routes
+    through the cost model instead: ``repro_torch.plan.autoplan``
+    enumerates impl x block sizes and returns the argmin-cost plan (never
+    costed worse than the static default, which is always a candidate).
+    ``feature_dim`` defaults to the config's hidden width — the dominant
+    SpMM feature dimension in a GCN stack.
+    """
+    if ell is not None:
+        from repro_torch.plan.autoplan import autoplan  # deferred: no cycle
+
+        return autoplan(
+            ell,
+            feature_dim or getattr(cfg, "hidden_dim", 128),
+            cfg,
+            n_devices=n_devices,
+        )
     return SpmmPlan(
         impl=cfg.spmm_impl,
         block_rows=cfg.block_rows,

@@ -81,6 +81,13 @@ PRECISION_LAUNCHES: Dict[str, int] = {
 #: ``kXwRows`` in ``csrc/flexvector_spmm.cu``.
 XW_TILE_ROWS = 64
 
+#: The rest of a fused CTA's tile: output columns (``kXwCols``), the depth
+#: of one chunk of ``F_in`` (``kXwDepth``) and the chunks in flight
+#: (``kStages``) in ``csrc/flexvector_spmm.cu``.
+XW_TILE_COLS = 128
+XW_CHUNK_DEPTH = 32
+XW_STAGES = 3
+
 #: The kernels load rows of ``x``, ``w`` and the dense operand in 16-byte
 #: pieces, so each row must start on a 16-byte boundary.
 _ROW_ALIGN_BYTES = 16
@@ -370,6 +377,29 @@ def max_column_chunks(n_dense_rows: int, n_slots: int) -> int:
     return -(-n_dense_rows // XW_TILE_ROWS) + -(-n_slots // MIN_CHUNK_SLOTS)
 
 
+def chunk_slots(counts: np.ndarray) -> int:
+    """Most slots one chunk of :func:`column_slots` takes, given the slots
+    of each column group (``counts``): 4x the mean per non-empty group,
+    at least :data:`MIN_CHUNK_SLOTS`, a multiple of 32."""
+    mean = int(counts.sum()) / max(int(np.count_nonzero(counts)), 1)
+    return max(MIN_CHUNK_SLOTS, 32 * -(-int(4 * mean) // 32))
+
+
+def fused_smem_bytes(dtype: torch.dtype, n_kb: int = 0) -> int:
+    """Dynamic shared memory of one fused CTA for ``x`` / ``w`` of
+    ``dtype``: the ring of :data:`XW_STAGES` (X chunk, W chunk) pairs or
+    the (64, 128) tile of ``X W + b``, whichever is larger, rows padded by
+    16 bytes (``FusedSmem`` in the CUDA source), plus the sparse grid's
+    bitmap of ``n_kb`` k-tiles (0 for the dense grid)."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    vec = _ROW_ALIGN_BYTES // size
+    stage = (XW_TILE_ROWS * (XW_CHUNK_DEPTH + vec)
+             + XW_CHUNK_DEPTH * (XW_TILE_COLS + vec))
+    ring = XW_STAGES * stage * size
+    tile = XW_TILE_ROWS * (XW_TILE_COLS + vec) * size
+    return max(ring, tile) + 4 * _bitmap_words(n_kb)
+
+
 def column_slots(cols, n_dense_rows: int):
     """The ELL table transposed by column group, for the fused kernels: one
     chunk of slots per CTA.
@@ -396,8 +426,7 @@ def column_slots(cols, n_dense_rows: int):
     group = c[ids] // XW_TILE_ROWS
     ids = ids[np.argsort(group, kind="stable")]
     counts = np.bincount(group, minlength=-(-n_dense_rows // XW_TILE_ROWS))
-    mean = ids.size / max(int(np.count_nonzero(counts)), 1)
-    max_chunk = max(MIN_CHUNK_SLOTS, 32 * -(-int(4 * mean) // 32))
+    max_chunk = chunk_slots(counts)
     per_group = -(-counts // max_chunk)                 # chunks per group
     chunk_group = np.repeat(np.arange(counts.size), per_group)
     # chunk j of group g starts at offset(g) + j * max_chunk

@@ -6,6 +6,8 @@ Usage:
       --requests 64 --batch 8 --fanout 16
   python -m repro_torch.launch.serve_gcn --dataset cora --requests 32 \
       --reduced                          # smoke configuration (hidden 16)
+  python -m repro_torch.launch.serve_gcn --dataset pubmed --impl cuda \
+      --autoplan --precision auto        # cost-model plans and precisions
 
 The port of ``repro.launch.serve_gcn`` (scenarios ``full``, ``node`` and
 ``batch``).  The async runtime scenario and the fleet are not ported yet.
@@ -23,6 +25,10 @@ from repro_torch.serve import ServeEngine
 
 
 def build_engine(args, device=None) -> ServeEngine:
+    growth = None
+    if args.ladder_growth:
+        growth = ("auto" if args.ladder_growth == "auto"
+                  else float(args.ladder_growth))
     return ServeEngine.from_dataset(
         args.dataset,
         hidden_dim=16 if args.reduced else args.hidden,
@@ -31,7 +37,10 @@ def build_engine(args, device=None) -> ServeEngine:
         max_batch=args.batch,
         max_seeds=max(args.seeds_per_request, 1),
         base_bucket_nodes=args.bucket_base,
+        autoplan=args.autoplan,
+        ladder_growth=growth,
         precision=args.precision,
+        accuracy_budget=args.accuracy_budget,
         device=device,
     )
 
@@ -57,9 +66,23 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
     ap.add_argument("--impl", default="reference",
                     choices=["reference", "cuda", "cuda_sparse"])
     ap.add_argument("--precision", default="f32",
-                    choices=["f32", "bf16", "int8"],
+                    choices=["f32", "bf16", "int8", "auto"],
                     help="serving numerics: bf16/int8 store the ELL values "
-                         "and weights at that width (f32 accumulate)")
+                         "and weights at that width (f32 accumulate); auto "
+                         "measures the full-graph logit error per precision "
+                         "at warmup and picks the cheapest one within "
+                         "--accuracy-budget per bucket rung")
+    ap.add_argument("--accuracy-budget", type=float, default=0.05,
+                    help="max relative logit error a non-f32 precision may "
+                         "introduce before --precision auto rejects it")
+    ap.add_argument("--autoplan", action="store_true",
+                    help="pick each bucket rung's per-layer plans (impl, "
+                         "block sizes, fusion) and the full-graph plan with "
+                         "the repro_torch.plan cost model at warmup")
+    ap.add_argument("--ladder-growth", default=None,
+                    help="bucket ladder growth factor (float), or 'auto' "
+                         "for the cost-model search; default: 4, or auto "
+                         "when --autoplan is set")
     ap.add_argument("--scenario", default="all",
                     choices=["all", "full", "node", "batch"])
     ap.add_argument("--reduced", action="store_true",
@@ -94,8 +117,24 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
           f"impl {impl_note}; device {engine.device}; "
           f"registry builds={reg.builds} disk_hits={reg.disk_hits}")
     if args.precision != "f32":
-        print(f"[precision] requested {args.precision}: every rung and the "
-              f"full graph store {engine.precision}")
+        errs = {p: round(e, 5)
+                for p, e in sorted(engine.precision_errors.items())}
+        picks = {b.rows: engine.batcher.precision_for_bucket(b)
+                 for b in engine.batcher.ladder.entries}
+        print(f"[precision] requested {args.precision} "
+              f"(budget {args.accuracy_budget}); measured errors {errs}; "
+              f"per-rung picks {picks}; "
+              f"full-graph {engine.resolved_precision}")
+    if args.autoplan:
+        # the per-layer plans each warmed rung runs
+        for (bucket, _), layer_plans in sorted(
+                engine.batcher._layer_plans.items()):
+            chain = " -> ".join(
+                f"L{i}:{p.effective_impl}/{p.block_rows}x{p.block_k}"
+                f"x{p.block_f}{'/fused' if p.fused else ''}"
+                for i, p in enumerate(layer_plans))
+            print(f"[autoplan] bucket ({bucket.nodes}, {bucket.rows}) "
+                  f"layers: {chain}")
 
     rng = np.random.default_rng(0)
     n_nodes = engine.graph.n_nodes

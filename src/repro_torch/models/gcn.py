@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,9 +21,11 @@ from repro_torch.core.preprocessing import PreprocessResult, preprocess
 from repro_torch.core.sparse_formats import CSRMatrix
 from repro_torch.device import resolve_device
 from repro_torch.exec import quant
-from repro_torch.exec.dispatch import execute_layer
 from repro_torch.exec.operands import SpmmOperands
 from repro_torch.exec.plan import SpmmPlan, plan_for_config
+
+if TYPE_CHECKING:
+    from repro_torch.exec.pipeline import GcnPipelinePlan
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 Device = Optional[Union[str, torch.device]]
@@ -129,44 +131,55 @@ def gcn_forward(
     graph: GCNGraph,
     features,
     cfg: GCNConfig,
-    plan: Optional[SpmmPlan] = None,
+    plan: Union[None, str, SpmmPlan, "GcnPipelinePlan"] = None,
     precision: str = "f32",
     device: Device = None,
+    mesh=None,
+    device_model=None,
 ) -> torch.Tensor:
     """Full-graph forward pass; logits in original node order.
 
     ``features`` (array or tensor, original node order) are permuted on
     entry and the output is permuted back on exit.  ``plan`` defaults to
-    the static plan of ``cfg``.  Runs on ``"cuda"`` unless ``device``
-    says otherwise; ``params`` must already be there.
+    the static plan of ``cfg``, applied to every layer.  ``plan="auto"``
+    hands the whole stack to the cost model: ``exec.pipeline`` picks each
+    layer's impl, block sizes and fusion for this graph on
+    ``device_model`` (a ``plan.cost.DeviceModel``; the H100 kernel model
+    when None); a :class:`~repro_torch.exec.pipeline.GcnPipelinePlan` can
+    also be passed directly.  Every plan runs through
+    :func:`~repro_torch.exec.pipeline.pipeline_forward`.  Runs on
+    ``"cuda"`` unless ``device`` says otherwise; ``params`` must already
+    be there.  A data ``mesh`` is ROADMAP item A9.
 
     ``precision`` (``f32`` | ``bf16`` | ``int8``, ``exec.quant``
-    semantics) is stamped on the plan and quantizes the layer weights per
-    ``plan.block_rows`` rows, so combination and aggregation both run at
-    the reduced storage width with f32 accumulation; a ``plan`` that
-    already carries a non-f32 precision is honoured.
+    semantics) is stamped on the plan (on every layer's under
+    ``plan="auto"``) and quantizes the layer weights per the plan's
+    ``block_rows`` rows, so combination and aggregation both run at the
+    reduced storage width with f32 accumulation; a plan that already
+    carries a non-f32 precision is honoured.
     """
+    from repro_torch.exec.pipeline import (GcnPipelinePlan, pipeline_forward,
+                                           plan_pipeline, uniform_pipeline)
+
     dev = resolve_device(device)
     quant.validate_precision(precision)
-    if plan is None:
-        plan = plan_for_config(cfg)
-    elif not isinstance(plan, SpmmPlan):
+    if mesh is not None:
         raise NotImplementedError(
-            f"plan={plan!r}: only a static SpmmPlan is ported (the cost "
-            "model behind plan='auto' is a queued slice)"
-        )
-    if precision != "f32" and plan.precision != precision:
-        plan = dataclasses.replace(plan, precision=precision)
-    params = quant.quantize_params(params, plan.precision, plan.block_rows)
-    operands, perm, inv = graph.on_device(dev)
-    x = torch.as_tensor(features, dtype=torch.float32, device=dev)[perm]
-    n_layers = len(params)
-    for i in range(n_layers):
-        x = execute_layer(plan, operands, x, params[f"layer_{i}"],
-                          w_block_rows=plan.block_rows)
-        if i < n_layers - 1:
-            x = torch.relu(x)
-    return x[inv]
+            "mesh=: sharding the forward over cards is ROADMAP item A9 "
+            "(multi-GPU sharding), not ported yet")
+    if isinstance(plan, str):
+        if plan != "auto":
+            raise ValueError(f"unknown plan: {plan!r} (expected 'auto')")
+        plan = plan_pipeline(cfg, graph.pre.ell, n_layers=len(params),
+                             precision=precision, device=device_model)
+    if not isinstance(plan, GcnPipelinePlan):
+        if plan is None:
+            plan = plan_for_config(cfg)
+        if precision != "f32" and plan.precision != precision:
+            plan = dataclasses.replace(plan, precision=precision)
+        plan = uniform_pipeline(plan, [
+            tuple(params[f"layer_{i}"]["w"].shape) for i in range(len(params))])
+    return pipeline_forward(params, graph, features, plan, device=dev)
 
 
 def gcn_loss(params, graph, features, labels, cfg, mask=None, plan=None,

@@ -35,6 +35,13 @@ slot lists from its numpy columns, and a run offsets and concatenates
 them per slot into buffers padded, with empty chunks, to the rung's chunk
 bound (the chunk count is the kernel's grid, fixed in the graph).
 
+With ``autoplan`` each rung gets its own plans from the cost model
+(``plan.autoplan`` / ``exec.pipeline`` over the rung's padded shape), and
+each rung may store its own precision (``set_bucket_precision``, the
+engine's ``precision="auto"``); both are fixed before the rung's graph is
+captured, and a rung builds slot lists only when one of its layers runs a
+fused kernel.
+
 The top ladder entry is sized from the full graph's preprocessed operand,
 so any subgraph fits some bucket.
 """
@@ -50,7 +57,7 @@ import torch
 from repro_torch.core.sparse_formats import PAD_COL
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import LEDGER
-from repro_torch.exec import SpmmOperands, plan_for_config, quant
+from repro_torch.exec import SpmmOperands, SpmmPlan, plan_for_config, quant
 from repro_torch.exec.dispatch import execute_layer, record_spmm_dram
 from repro_torch.exec.fused import provide_column_slots, record_combination_dram
 from repro_torch.kernels import flexvector_spmm as fv
@@ -98,6 +105,7 @@ class BucketLadder:
         cfg: GCNConfig,
         base_nodes: int = 256,
         growth=4,
+        device_model=None,
     ) -> "BucketLadder":
         """Geometric ladder capped by the full graph's operand.
 
@@ -105,18 +113,23 @@ class BucketLadder:
         ``rows = nodes * stats.rows_per_node`` ties it to the graph's own
         vertex-cut expansion factor, and ``mean_row_nnz`` is carried on
         the ladder.  The top entry covers the whole graph, so escalation
-        always terminates.  ``growth`` is any factor > 1; ``"auto"`` (the
-        cost model's pick) needs the planning slice.
+        always terminates.  ``growth`` is any factor > 1, or ``"auto"`` to
+        let the cost model pick one
+        (:func:`repro_torch.plan.autoplan.choose_ladder_growth`: padded
+        work against rung builds, scored on this graph's statistics with
+        ``device_model``, the H100 kernel model when None).
         """
         from repro_torch.plan import cost
 
-        if growth == "auto":
-            raise NotImplementedError(
-                "ladder growth 'auto' is chosen by the cost model: ROADMAP "
-                "item A8 (planning), not ported yet")
         stats = cost.graph_stats_from_ell(full_graph.pre.ell)
         top_nodes = _round_up(full_graph.n_nodes, cfg.block_k)
         base = min(_round_up(base_nodes, cfg.block_k), top_nodes)
+        if growth == "auto":
+            from repro_torch.plan.autoplan import choose_ladder_growth
+
+            growth = choose_ladder_growth(
+                stats, cfg, base_nodes=base, top_nodes=top_nodes,
+                device=device_model)
         entries = tuple(
             Bucket(nodes=n, rows=_round_up(n * stats.rows_per_node,
                                            cfg.block_rows))
@@ -227,11 +240,8 @@ class MicroBatcher:
         fused: Optional[bool] = None,
         feedback=None,
         device=None,
+        device_model=None,
     ):
-        if autoplan:
-            raise NotImplementedError(
-                "autoplan=True: per-rung plans come from the cost model, "
-                "ROADMAP item A8 (planning), not ported yet")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharding bucket chunks over cards is ROADMAP item A9 "
@@ -245,25 +255,90 @@ class MicroBatcher:
         self.max_batch = max_batch
         self.max_seeds = max_seeds
         self.device = resolve_device(device)
+        # Kernel fusion per layer: ``None`` leaves it to the planner
+        # (``autoplan`` may fuse layers it prices cheaper; otherwise two
+        # launches), ``True``/``False`` force it on every kernel layer.
+        self.fused = fused
+        # Default storage precision of every rung; per-rung overrides land
+        # in _bucket_precisions through set_bucket_precision before the
+        # rung is built.
         self.precision = quant.validate_precision(precision)
+        self._bucket_precisions: Dict[Bucket, str] = {}
         # The coalesced operand carries no host TiledELL, so the plan
         # resolves here, once: a cuda_sparse config records (and warns)
         # its degradation to the dense grid (``plan.degraded_reason``).
         self.plan = plan_for_config(cfg).resolve(schedulable=False)
-        # One plan per layer, the same for every rung: the config's plan
-        # at the storage precision, fused on every kernel layer when
-        # ``fused`` is True (``None`` and ``False``: two launches).
-        self.layer_plans = [
-            dataclasses.replace(self.plan, precision=self.precision,
-                                fused=bool(fused))
-        ] * cfg.n_layers
-        # a fused kernel takes slot lists, which the requests carry
-        self.uses_slots = any(p.fused and p.effective_impl != "reference"
-                              for p in self.layer_plans)
+        self.autoplan = autoplan
+        # the cost model rung plans are chosen on (None: the H100 model)
+        self.device_model = device_model
         self.compiles = 0          # executables built (warmup or on-demand)
         self.calls = 0             # coalesced forward invocations
         self._executables: Dict[tuple, object] = {}
+        self._layer_plans: Dict[Tuple[Bucket, int], List[SpmmPlan]] = {}
         self._pool = None          # the captures' CUDA graph memory pool
+
+    def set_bucket_precision(self, bucket: Bucket, precision: str) -> None:
+        """Pin one rung's storage precision (call before the rung is built:
+        the precision is part of its executable's key and capture)."""
+        self._bucket_precisions[bucket] = quant.validate_precision(precision)
+
+    def precision_for_bucket(self, bucket: Bucket) -> str:
+        return self._bucket_precisions.get(bucket, self.precision)
+
+    def _rung_stats(self, bucket: Bucket):
+        """Synthetic graph stats of one rung: its padded shape at the
+        graph's mean sub-row nnz (carried on the ladder)."""
+        from repro_torch.plan import cost
+
+        return cost.synthetic_stats(
+            rows=bucket.rows,
+            n_out_rows=bucket.nodes,
+            n_dense_rows=bucket.nodes,
+            nnz=max(int(bucket.rows
+                        * (self.ladder.mean_row_nnz or self.cfg.tau / 2)), 1),
+            tau=self.cfg.tau,
+        )
+
+    def layer_plans_for_bucket(self, bucket: Bucket,
+                               feature_dim: int) -> List[SpmmPlan]:
+        """One plan per layer for one rung's coalesced forward.
+
+        With ``autoplan`` off every layer shares the config's plan.  With
+        it on, the rung's synthetic stats go through the pipeline planner
+        (``exec.pipeline``), which picks impl, blocks and fusion per layer.
+        An explicit ``fused`` overrides the fusion both ways.  Cached per
+        (bucket, feature_dim), so the choice is made once, before the
+        rung is built.
+        """
+        key = (bucket, feature_dim)
+        plans = self._layer_plans.get(key)
+        if plans is None:
+            if self.autoplan:
+                from repro_torch.exec.pipeline import plan_pipeline
+
+                pplan = plan_pipeline(self.cfg, self._rung_stats(bucket),
+                                      device=self.device_model)
+                plans = [lp.spmm.resolve(schedulable=False)
+                         for lp in pplan.layers]
+            else:
+                plans = [self.plan] * self.cfg.n_layers
+            if self.fused is not None:
+                plans = [dataclasses.replace(p, fused=self.fused)
+                         for p in plans]
+            self._layer_plans[key] = plans
+        return plans
+
+    def _rung_plans(self, bucket: Bucket, feature_dim: int) -> List[SpmmPlan]:
+        """The rung's layer plans at the rung's storage precision."""
+        prec = self.precision_for_bucket(bucket)
+        return [dataclasses.replace(p, precision=prec)
+                for p in self.layer_plans_for_bucket(bucket, feature_dim)]
+
+    def uses_slots(self, bucket: Bucket, feature_dim: int) -> bool:
+        """Does one of the rung's layers run a fused kernel, which takes
+        slot lists (built per request in :meth:`prepare`)?"""
+        return any(p.fused and p.effective_impl != "reference"
+                   for p in self.layer_plans_for_bucket(bucket, feature_dim))
 
     def record_batch_dram(self, bucket: Bucket, batch: int,
                           feature_dim: int) -> None:
@@ -271,7 +346,7 @@ class MicroBatcher:
 
         A replay never reaches the dispatch's ``record_spmm_dram``; this
         applies the same arithmetic host-side — one record per layer over
-        the coalesced block-diagonal operand at the batcher's precision and
+        the coalesced block-diagonal operand at the rung's precision and
         layer plans.
         """
         cfg = self.cfg
@@ -279,7 +354,8 @@ class MicroBatcher:
         nodes = int(batch) * bucket.nodes
         f_ins = [feature_dim] + [cfg.hidden_dim] * (cfg.n_layers - 1)
         f_outs = [cfg.hidden_dim] * (cfg.n_layers - 1) + [cfg.out_dim]
-        for plan, f_in, f_out in zip(self.layer_plans, f_ins, f_outs):
+        plans = self._rung_plans(bucket, feature_dim)
+        for plan, f_in, f_out in zip(plans, f_ins, f_outs):
             if plan.fused and plan.effective_impl != "reference":
                 # the intermediate activation's write + read-back (2 * K *
                 # F_out elements) never touches DRAM
@@ -333,17 +409,20 @@ class MicroBatcher:
         feats[: sub.n_sub_nodes] = features[sub.graph.pre.perm]
         seed_pos = np.full((self.max_seeds,), -1, dtype=np.int32)
         seed_pos[: sub.seed_local.size] = sub.graph.inv[sub.seed_local]
-        # Quantize host-side to the storage precision: the padded tail rows
+        # Quantize host-side to the rung's storage precision, per
+        # cfg.block_rows rows (each layer plan's kernel re-blocks the
+        # scales through SpmmOperands.values_for): the padded tail rows
         # are zero, so extra all-zero scale blocks get scale 1.0 and
         # dequantize to the same zeros.  bf16 rounds to nearest even.
+        prec = self.precision_for_bucket(bucket)
         scales = None
-        if self.precision == "int8":
+        if prec == "int8":
             q, s = quant.quantize_values(vals, self.cfg.block_rows)
             vals, scales = q.numpy(), s.numpy()
-        elif self.precision == "bf16":
+        elif prec == "bf16":
             vals = torch.from_numpy(vals).to(torch.bfloat16)
         slots = None
-        if self.uses_slots:
+        if self.uses_slots(bucket, features.shape[1]):
             if bucket.nodes % fv.XW_TILE_ROWS:
                 raise ValueError(
                     f"fused rungs need bucket nodes in whole "
@@ -370,12 +449,14 @@ class MicroBatcher:
     # Coalesced execution
     # ------------------------------------------------------------------
 
-    def _make_forward(self, bucket: Bucket):
+    def _make_forward(self, bucket: Bucket, feature_dim: int):
         """``fwd(params, inputs) -> (batch, max_seeds, out_dim)`` logits of
         the seed rows, over the stacked inputs of :meth:`input_specs`."""
         cfg = self.cfg
-        prec = self.precision
-        layer_plans = self.layer_plans
+        prec = self.precision_for_bucket(bucket)
+        layer_plans = self._rung_plans(bucket, feature_dim)
+        fused_plans = [p for p in layer_plans
+                       if p.fused and p.effective_impl != "reference"]
         nodes_b = bucket.nodes
 
         def fwd(params, inp: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -404,9 +485,11 @@ class MicroBatcher:
                 scale_block_rows=None if scales_f is None else cfg.block_rows,
                 precision="int8" if scales_f is not None else "f32",
             )
-            if "slot_group" in inp:
+            # every fused layer reads the rung's slot lists, under its own
+            # plan's padded X height
+            for plan in fused_plans:
                 provide_column_slots(
-                    layer_plans[0], operands, b * nodes_b,
+                    plan, operands, b * nodes_b,
                     tuple(inp[name] for name in _SLOT_INPUTS))
             x = inp["feats"].reshape(b * nodes_b, -1)
             for i in range(cfg.n_layers):
@@ -428,12 +511,12 @@ class MicroBatcher:
         """``name -> (shape, dtype, padding value)`` of one rung's stacked
         inputs, in the order a run fills them."""
         tau = self.cfg.tau
+        prec = self.precision_for_bucket(bucket)
         specs = {
             "cols": ((batch, bucket.rows, tau), torch.int32, PAD_COL),
-            "vals": ((batch, bucket.rows, tau),
-                     quant.storage_dtype(self.precision), 0),
+            "vals": ((batch, bucket.rows, tau), quant.storage_dtype(prec), 0),
         }
-        if self.precision == "int8":
+        if prec == "int8":
             n_qb = -(-bucket.rows // self.cfg.block_rows)
             specs["scales"] = ((batch, n_qb), torch.float32, 1.0)
         specs.update({
@@ -441,7 +524,7 @@ class MicroBatcher:
             "feats": ((batch, bucket.nodes, feature_dim), torch.float32, 0.0),
             "seed_pos": ((batch, self.max_seeds), torch.int32, -1),
         })
-        if self.uses_slots:
+        if self.uses_slots(bucket, feature_dim):
             # every chunk past the requests' is empty (start == next start)
             chunks = batch * self.chunk_bound(bucket)
             specs.update({
@@ -460,10 +543,11 @@ class MicroBatcher:
             for name, layer in sorted(params.items())
             for k, v in sorted(layer.items())
         )
-        key = (bucket, batch, feature_dim, self.precision, p_sig)
+        key = (bucket, batch, feature_dim, self.precision_for_bucket(bucket),
+               p_sig)
         exe = self._executables.get(key)
         if exe is None:
-            fwd = self._make_forward(bucket)
+            fwd = self._make_forward(bucket, feature_dim)
             if self.device.type == "cuda":
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
@@ -557,7 +641,7 @@ class MicroBatcher:
         inputs = {name: stack(name, fill)
                   for name, (_, _, fill) in specs.items()
                   if name not in _SLOT_INPUTS}
-        if self.uses_slots:
+        if self.uses_slots(bucket, feature_dim):
             inputs.update(self._stack_slots(reqs, bucket, specs))
         out = exe(params, inputs)
         self.calls += 1

@@ -114,17 +114,18 @@ class ServeEngine:
         sampler_seed: int = 0,
         mesh=None,
         autoplan: bool = False,
-        ladder_growth=4,
+        ladder_growth=None,
         precision: str = "f32",
+        accuracy_budget: float = 0.05,
         fused: Optional[bool] = None,
         feedback=None,
         device=None,
+        device_model=None,
     ):
-        if precision == "auto":
-            raise NotImplementedError(
-                "precision='auto' picks each rung's precision with the cost "
-                "model: ROADMAP item A8 (planning), not ported yet")
         self.device = resolve_device(device)
+        # the cost model every plan and precision pick uses (a
+        # plan.cost.DeviceModel; None: the H100 kernel model)
+        self.device_model = device_model
         self.cfg = cfg
         self.adj_norm = adj_norm
         self.features = np.asarray(features, dtype=np.float32)
@@ -138,13 +139,24 @@ class ServeEngine:
                    for k, v in layer.items()}
             for name, layer in params.items()
         }
-        self.precision = quant.validate_precision(precision)
+        # ``precision`` is a fixed storage precision (exec.quant semantics)
+        # or "auto": measure each precision's full-graph logit error at
+        # warmup and let the cost model pick per rung under
+        # ``accuracy_budget``.  Until warmup resolves it, auto serves f32.
+        if precision != "auto":
+            quant.validate_precision(precision)
+        self.precision = precision
+        self.accuracy_budget = float(accuracy_budget)
+        self.precision_errors: Dict[str, float] = {"f32": 0.0}
+        self._static_precision = "f32" if precision == "auto" else precision
         self._graph_key = graph_key(adj_norm, cfg)
         # Full-graph artifact: preprocessed once per content key, persisted.
+        # With autoplanning on, the full-graph step runs the pipeline
+        # planner's per-layer plans; the config's static plan otherwise.
         self.graph = self.registry.get_or_build(
             adj_norm, cfg, persist=True, key=self._graph_key)
-        self._full_step = self.registry.forward_step(
-            adj_norm, cfg, precision=self.precision, device=self.device)
+        self._plan_arg = "auto" if autoplan else None
+        self._full_step = self._step(self._static_precision)
         self.sampler = SubgraphSampler(
             adj_norm,
             cfg,
@@ -153,20 +165,26 @@ class ServeEngine:
             seed=sampler_seed,
             registry=self.registry,
         )
+        # With autoplanning on, the ladder's growth factor is a plan
+        # decision too unless the caller pinned one; 4 otherwise.
+        if ladder_growth is None:
+            ladder_growth = "auto" if autoplan else 4
         self.batcher = MicroBatcher(
             cfg,
             ladder
             or BucketLadder.for_graph(self.graph, cfg,
                                       base_nodes=base_bucket_nodes,
-                                      growth=ladder_growth),
+                                      growth=ladder_growth,
+                                      device_model=device_model),
             max_batch=max_batch,
             max_seeds=max_seeds,
             mesh=mesh,
             autoplan=autoplan,
-            precision=self.precision,
+            precision=self._static_precision,
             fused=fused,
             feedback=feedback,
             device=self.device,
+            device_model=device_model,
         )
         self.timings: Dict[str, List[float]] = {}
         self.seeds_served: Dict[str, int] = {}
@@ -210,6 +228,8 @@ class ServeEngine:
 
         After this returns, any query whose subgraph fits a built bucket
         runs with zero new executables (``compile_count`` is the proof).
+        With ``precision="auto"`` this is also where precision resolves
+        (:meth:`_resolve_auto_precision`), before any rung is built.
 
         With ``max_nodes`` unset and a fanout cap active, warmup derives
         the reachable rungs from the sampler's bounds instead of building
@@ -221,6 +241,8 @@ class ServeEngine:
         Every rung up to the first satisfying *both* bounds is built.
         Uncapped fanout builds every rung.
         """
+        if self.precision == "auto":
+            self._resolve_auto_precision()
         if max_nodes is None and self.sampler.fanout is not None:
             f, h = self.sampler.fanout, self.sampler.hops
             bound_nodes = min(
@@ -253,6 +275,81 @@ class ServeEngine:
     def graph_key(self) -> str:
         """Content hash identifying this engine's graph."""
         return self._graph_key
+
+    @property
+    def resolved_precision(self) -> str:
+        """Precision the full-graph step runs at — the configured one, or
+        the auto-resolved pick after ``warmup()``."""
+        return self._static_precision
+
+    def _step(self, precision: str):
+        return self.registry.forward_step(
+            self.adj_norm, self.cfg, plan=self._plan_arg,
+            precision=precision, device=self.device,
+            device_model=self.device_model)
+
+    def full_step_seconds(self, precision: str) -> float:
+        """The cost model's price of one full-graph step at ``precision``:
+        the pipeline planner's per-layer plans with autoplanning on, the
+        config's static plan on every layer otherwise."""
+        from repro_torch.exec.pipeline import (pipeline_seconds,
+                                               plan_pipeline, static_pipeline)
+        from repro_torch.plan import cost
+
+        stats = cost.graph_stats_from_ell(self.graph.pre.ell)
+        if self._plan_arg == "auto":
+            pplan = plan_pipeline(self.cfg, stats, precision=precision,
+                                  device=self.device_model)
+        else:
+            pplan = static_pipeline(self.cfg, precision=precision)
+        return pipeline_seconds(stats, pplan, device=self.device_model)
+
+    def _resolve_auto_precision(self) -> None:
+        """Measure each precision's logit error and pin a precision per
+        rung.
+
+        The measurement is one full-graph forward per precision through
+        the registry's steps on the engine's device, scored with
+        :func:`repro_torch.exec.quant.logit_error` against f32.  Each rung
+        then takes the precision the cost model prices cheapest
+        (``plan.cost.bucket_forward_seconds``) among those whose error
+        fits ``accuracy_budget`` — f32 always does, so resolution cannot
+        fail.  The full-graph step moves to the admissible precision the
+        model prices cheapest for it (:meth:`full_step_seconds`; ties keep
+        the wider one).  Idempotent: errors are measured once.
+        """
+        from repro_torch.plan import cost
+
+        if len(self.precision_errors) <= 1:
+            ref = self._full_step(self.params, self._features_dev)
+            for p in ("bf16", "int8"):
+                out = self._step(p)(self.params, self._features_dev)
+                self.precision_errors[p] = quant.logit_error(ref, out)
+        admissible = tuple(
+            p for p in quant.PRECISIONS
+            if self.precision_errors.get(p, float("inf"))
+            <= self.accuracy_budget or p == "f32"
+        )
+        cfg = self.cfg
+        f_dims = [cfg.hidden_dim] * (cfg.n_layers - 1) + [cfg.out_dim]
+        mean_nnz = self.batcher.ladder.mean_row_nnz or cfg.tau / 2
+        for b in self.batcher.ladder.entries:
+            best_p, best_s = "f32", None
+            for p in admissible:
+                s = cost.bucket_forward_seconds(
+                    rows=b.rows, n_out_rows=b.nodes, mean_row_nnz=mean_nnz,
+                    tau=cfg.tau, f_dims=f_dims, impl=cfg.spmm_impl,
+                    block_rows=cfg.block_rows, block_k=cfg.block_k,
+                    block_f=cfg.block_f, precision=p,
+                    device=self.device_model,
+                )
+                if best_s is None or s < best_s:
+                    best_p, best_s = p, s
+            self.batcher.set_bucket_precision(b, best_p)
+        full = min(admissible, key=self.full_step_seconds)
+        if full != self._static_precision:
+            self._full_step = self._step(full)
+            self._static_precision = full
 
     # ------------------------------------------------------------------
     # Scenarios

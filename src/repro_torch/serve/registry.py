@@ -108,33 +108,39 @@ class ArtifactRegistry:
 
     def forward_step(
         self, adj: CSRMatrix, cfg: GCNConfig, persist: bool = True,
-        plan=None, precision: str = "f32", device=None,
+        plan=None, precision: str = "f32", device=None, device_model=None,
     ) -> Callable:
         """Full-graph forward ``step(params, features) -> logits`` (a
         tensor on ``device``, the card unless given) bound to the
         registered preprocessed operand.
 
-        Keyed on ``(graph_key, cfg, precision, plan, device)``: graph_key
-        deliberately ignores forward-only fields (dims, spmm impl/blocks)
-        so the *operand* is shared, but the step is not.  ``plan`` is
-        ``None`` (the config's static plan) or an ``SpmmPlan`` (a frozen
-        value, keyed by equality); ``plan="auto"`` needs the planning
-        slice.
+        Keyed on ``(graph_key, cfg, precision, plan, device,
+        device_model)``: graph_key deliberately ignores forward-only fields
+        (dims, spmm impl/blocks) so the *operand* is shared, but the step
+        is not.  ``plan`` is ``None`` (the config's static plan), a frozen
+        plan object (keyed by equality) or ``"auto"``, which plans the
+        whole stack through ``exec.pipeline`` on ``device_model`` (the
+        H100 kernel model when None) once, here, so every call runs the
+        chosen per-layer plans.
         """
-        if isinstance(plan, str):
-            raise NotImplementedError(
-                f"plan={plan!r}: the pipeline planner is ROADMAP item A8 "
-                "(planning), not ported yet")
         dev = resolve_device(device)
         gkey = graph_key(adj, cfg)
-        key = (gkey, cfg, precision, plan, dev)
+        key = (gkey, cfg, precision, plan, dev, device_model)
         fwd = self._forwards.get(key)
         if fwd is not None:
             return fwd
         graph = self.get_or_build(adj, cfg, persist=persist, key=gkey)
+        step_plan = plan
+        if isinstance(plan, str):
+            if plan != "auto":
+                raise ValueError(f"unknown plan: {plan!r} (expected 'auto')")
+            from repro_torch.exec.pipeline import plan_pipeline
+
+            step_plan = plan_pipeline(cfg, graph.pre.ell, precision=precision,
+                                      device=device_model)
 
         def fwd(params, feats) -> torch.Tensor:
-            return gcn_forward(params, graph, feats, cfg, plan=plan,
+            return gcn_forward(params, graph, feats, cfg, plan=step_plan,
                                precision=precision, device=dev)
 
         self._forwards[key] = fwd

@@ -6,7 +6,8 @@ PyTorch for CUDA:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest`` keeps ``tests/conftest.py``, which imports the JAX
-package, out; this file imports nothing else from ``tests``.)  Each
+package, out; this file imports nothing else from ``tests`` but
+``tests/_torch_ops.py``, which imports only torch.)  Each
 kernel is held against its plain PyTorch version on the same card, and
 the forward pass on the card against the plain forward on the CPU.
 """
@@ -482,3 +483,166 @@ def test_cuda_serve_replay_answers_the_new_request(cuda_device, tmp_path):
     assert b.shape == (len(second), 5)
     _assert_answers_agree([a], [cpu.query(reqs[0])], "f32")
     _assert_answers_agree([b], [cpu.query(second)], "f32")
+
+
+# -- planning: autoplanned rungs -----------------------------------------------
+
+
+def _mixed_planner(monkeypatch, first_rows=32, second_rows=64):
+    """Make the pipeline planner answer every rung with a fused first
+    layer and an unfused second one, at ``first_rows`` and
+    ``second_rows`` block rows (the config's are 128)."""
+    import dataclasses
+
+    from repro_torch.exec import pipeline
+
+    real = pipeline.plan_pipeline
+
+    def mixed(cfg, graph, **kw):
+        pp = real(cfg, graph, **kw)
+        plans = (dataclasses.replace(pp.layers[0].spmm, impl="cuda",
+                                     fused=True, block_rows=first_rows),
+                 dataclasses.replace(pp.layers[1].spmm, impl="cuda",
+                                     fused=False, block_rows=second_rows))
+        return dataclasses.replace(pp, layers=tuple(
+            dataclasses.replace(lp, spmm=p)
+            for lp, p in zip(pp.layers, plans)))
+
+    monkeypatch.setattr(pipeline, "plan_pipeline", mixed)
+
+
+def _planned_engines(device, cache_dir, precision):
+    """``_serve_engines`` with ``autoplan=True`` (growth 4, so the rungs
+    are the static engines')."""
+    from repro_torch.graphs.datasets import (DatasetSpec, gcn_normalize,
+                                             synthesize_adjacency)
+    from repro_torch.serve import ArtifactRegistry, ServeEngine
+
+    spec = DatasetSpec("toy", nodes=400, edges=1_600, feature_dim=32,
+                       classes=5)
+    adj = gcn_normalize(synthesize_adjacency(spec, seed=7))
+    feats = np.random.default_rng(7).standard_normal((400, 32)).astype(
+        np.float32)
+    cfg = GCNConfig(in_dim=32, hidden_dim=8, out_dim=5, spmm_impl="cuda")
+    params = _serve_params(1)
+    registry = ArtifactRegistry(cache_dir=str(cache_dir))
+    kw = dict(fanout=4, max_seeds=4, max_batch=4, base_bucket_nodes=64,
+              precision=precision, registry=registry, autoplan=True,
+              ladder_growth=4)
+    return (ServeEngine(adj, feats, cfg, params=params_from_numpy(params, device),
+                        device=device, **kw),
+            ServeEngine(adj, feats, cfg, params=params_from_numpy(params, "cpu"),
+                        device="cpu", **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_cuda_plan_mixed_rung_captures_and_replays(cuda_device, tmp_path,
+                                                   monkeypatch, precision):
+    """An autoplanned rung whose first layer is fused and second unfused
+    captures one CUDA graph per (rung, batch) holding both kernels, and
+    its replays answer as the same engine on the CPU does."""
+    from repro_torch.serve.batcher import _CapturedForward
+
+    _mixed_planner(monkeypatch)
+    card, cpu = _planned_engines(cuda_device, tmp_path, precision)
+    built = card.warmup()
+    cpu.warmup()
+    exes = card.batcher._executables.values()
+    assert built == len(exes) > 0
+    assert all(isinstance(e, _CapturedForward) for e in exes)
+    tag = ("_scaled" if precision == "int8" else "") + f"@{precision}"
+    for e in exes:
+        assert e.launches.get(f"spmm_ell_fused_dense_grid{tag}", 0) == 1
+        assert e.launches.get(f"spmm_ell_dense_grid{tag}", 0) == 1
+    reqs = _serve_requests(24)
+    got = [card.query(s) for s in reqs[:8]] + card.query_batch(reqs[8:])
+    want = [cpu.query(s) for s in reqs[:8]] + cpu.query_batch(reqs[8:])
+    assert card.compile_count == built
+    _assert_answers_agree(got, want, precision)
+
+
+@pytest.mark.cuda
+def test_cuda_plan_int8_rung_other_block_rows_gives_eager_answer(
+        cuda_device, tmp_path, monkeypatch):
+    """An int8 rung whose layer plans take 32 and 64 block rows (the
+    config's are 128) re-blocks the requests' scales per plan
+    (``SpmmOperands.values_for``) inside the capture: the scaled kernels
+    run, and the answers are the CPU engine's and the eager forwards'."""
+    from repro_torch.models.gcn import gcn_forward
+
+    _mixed_planner(monkeypatch)
+    card, cpu = _planned_engines(cuda_device, tmp_path, "int8")
+    built = card.warmup()
+    reqs = _serve_requests(12, seed=4)
+    got = card.query_batch(reqs)
+    assert card.compile_count == built
+    plans = card.batcher.layer_plans_for_bucket(card._prepare(reqs[0]).bucket,
+                                                32)
+    assert [p.block_rows for p in plans] == [32, 64]
+    _assert_answers_agree(got, cpu.query_batch(reqs), "int8")
+    eager = []
+    for seeds in reqs:
+        sub = card.sampler.extract(seeds)
+        logits = gcn_forward(card.params, sub.graph, card.features[sub.nodes],
+                             card.cfg, precision="int8", device=cuda_device)
+        eager.append(logits[torch.as_tensor(sub.seed_local,
+                                            device=cuda_device)].cpu().numpy())
+    _assert_answers_agree(got, eager, "int8")
+    assert any(e.launches.get("spmm_ell_dense_grid_scaled@int8", 0)
+               for e in card.batcher._executables.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+def test_cuda_plan_launches_are_the_ops_dispatch_runs(cuda_device, impl,
+                                                      precision, fused):
+    """On the card, the torch ops ``execute_layer`` runs (wrappers
+    included) plus its kernel launches are the H100 model's launches for
+    the layer, padded and unpadded (``tests/test_torch_plan.py`` checks
+    the same on the CPU with each wrapper taken as these launches)."""
+    from _torch_ops import CountOps
+
+    from repro_torch.exec import quant
+    from repro_torch.exec.dispatch import execute_layer
+    from repro_torch.graphs.datasets import (DatasetSpec, gcn_normalize,
+                                             synthesize_adjacency)
+    from repro_torch.models.gcn import init_params
+    from repro_torch.plan import cost
+
+    for nodes, f_in, f_out in ((300, 20, 16), (256, 24, 32), (250, 3, 5)):
+        spec = DatasetSpec("toy", nodes=nodes, edges=5 * nodes,
+                           feature_dim=f_in, classes=f_out)
+        cfg = GCNConfig(in_dim=f_in, hidden_dim=f_out, out_dim=f_out, tau=6,
+                        spmm_impl="cuda", block_rows=16, block_k=16,
+                        block_f=16)
+        graph = GCNGraph.build(
+            gcn_normalize(synthesize_adjacency(spec, seed=1)), cfg)
+        stats = cost.graph_stats_from_ell(graph.pre.ell)
+        operands, perm, _ = graph.on_device(cuda_device)
+        x = torch.randn(nodes, f_in, device=cuda_device)[perm]
+        layer = init_params(cfg, device=cuda_device)["layer_0"]
+        for br, bk, bf in ((16, 16, 16), (32, 64, 8), (64, 16, 32)):
+            plan = SpmmPlan(impl=impl, block_rows=br, block_k=bk, block_f=bf,
+                            precision=precision, fused=fused)
+            p = quant.quantize_params({"l": layer}, precision, br)["l"]
+            execute_layer(plan, operands, x, p, w_block_rows=br)
+            torch.cuda.synchronize()
+            kernels = sum(fv.LAUNCHES.values())
+            with CountOps() as ops:
+                execute_layer(plan, operands, x, p, w_block_rows=br)
+            torch.cuda.synchronize()
+            counted = len(ops.names) + sum(fv.LAUNCHES.values()) - kernels
+            blocks = dict(impl=impl, block_rows=br, block_k=bk,
+                          precision=precision)
+            if fused:
+                want = cost.cuda_fused_work(stats, f_in, f_out, block_f=bf,
+                                            **blocks)["launches"]
+            else:
+                want = (cost.cuda_spmm_work(stats, f_out, **blocks)["launches"]
+                        + cost.cuda_combination_work(
+                            stats.n_dense_rows, f_in, f_out,
+                            precision)["launches"])
+            assert counted == want, (nodes, br, bk, bf, ops.names)

@@ -202,12 +202,13 @@ def test_graph_places_operands_once_per_device():
 
 
 def test_forward_rejects_auto_plan():
+    """``plan="auto"`` plans one card: a data mesh is ROADMAP A9."""
     feats, params = _inputs("fused_case")
     _, tgraph = _graphs("fused_case")
     cfg = tgcn.GCNConfig(**_dims("fused_case"))
-    with pytest.raises(NotImplementedError, match="static SpmmPlan"):
+    with pytest.raises(NotImplementedError, match="A9"):
         tgcn.gcn_forward(params_from_numpy(params, "cpu"), tgraph, feats, cfg,
-                         plan="auto", device="cpu")
+                         plan="auto", device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])

@@ -93,9 +93,32 @@ Phases, in order; any failure exits non-zero:
    warmup and answers as an ``impl="reference"`` engine at the same
    precisions does, within phase 5's limits.
 
+7. Sharding: ``gcn_forward(mesh=)`` in two spawned ranks over one process
+   group on a ``launch.mesh.make_data_mesh`` data mesh: gloo with both
+   ranks on the card when there is one (NCCL refuses two ranks on one
+   card; gloo takes CUDA tensors), NCCL with a card each when there are
+   two.  The dataset is preprocessed once, here, and the graph, features,
+   weights and the unsharded reference-impl logits of each precision are
+   handed to the ranks in files.  Each rank runs the four kernel configs
+   with a replicated chain (an all-reduce per layer) and a row-sharded one
+   (``static_pipeline``: reduce-scatter, then the next layer's all-gather),
+   at f32, bf16 and int8, and holds the logits against the unsharded
+   forward at phase 4's limits (int8 values are re-quantized per shard, so
+   int8 is held against the sharded reference impl and within the int8
+   logit budget of the f32 logits); each forward's ledger must equal the
+   cost model's collective formulas; the launch counts, reset before each
+   precision, must show that precision's four kernels on both ranks and
+   no other; a profile of one f32 forward per config must show the port's
+   aggregation and fused kernels and no library sparse kernel; and
+   ``plan="auto"`` on the 2-wide mesh (the H100 model, which prices the
+   collectives at NVLink's published rate) must launch exactly its plan's
+   kernels and agree.  Forward times are CUDA-event medians per rank; with
+   both ranks on one card they are per-shard times, not multi-GPU times.
+
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
-one ``{"serving": ...}`` line and one ``{"planning": ...}`` line, then as
-the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+one ``{"serving": ...}`` line, one ``{"planning": ...}`` line and one
+``{"sharding": ...}`` line, then as the last line ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -236,6 +259,14 @@ PLAN_ROUNDS = {"pubmed": 300, "reddit": 20}
 AGGREGATION_KERNEL = "ell_aggregate_kernel"
 FUSED_KERNEL = "ell_fused_xw_kernel"
 LIBRARY_SPARSE = ("sparse", "csrmm", "coomm", "spmm")
+# Phase 7: sharding.  Two ranks over one process group: gloo when one card
+# holds both (NCCL refuses two ranks on one card), NCCL given two cards.
+# Each (config, chain) forward is timed over SHARD_REPS calls after one
+# warm call; the spawn has SHARD_SECONDS in all.
+SHARD_RANKS = 2
+SHARD_CHAINS = ("replicated", "pipelined")
+SHARD_REPS = {"pubmed": 10, "reddit": 3}
+SHARD_SECONDS = 900
 
 
 class SmokeFailure(Exception):
@@ -1505,6 +1536,328 @@ def planned_serving(torch, np, registry, data, cfg, params, dev) -> dict:
             "rungs": rung_plans, "requests": len(requests), **out}
 
 
+# -- phase 7: sharding -------------------------------------------------------------
+
+
+def phase_sharding(torch, np, graph, cfg, params, feats, dev, dataset: str,
+                   card: str) -> dict:
+    """Phase 7: ``gcn_forward(mesh=)`` in SHARD_RANKS spawned ranks.  The
+    dataset's preprocessed graph, its features and weights, and the
+    unsharded forwards the ranks are held against (the reference impl on
+    the card, per precision) are computed here once and handed over in
+    files; each rank checks its own results and returns them."""
+    import pickle
+    import multiprocessing
+
+    from repro_torch.exec.plan import SpmmPlan
+    from repro_torch.models.gcn import GCNGraph, gcn_forward
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= SHARD_RANKS else "gloo"
+    blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
+                  block_f=cfg.block_f)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as d:
+        t0 = time.perf_counter()
+        # the per-tile views of the vertex-cut stay behind: a forward
+        # reads the ELL, the permutation and its inverse
+        handed = GCNGraph(pre=dataclasses.replace(graph.pre, tiles=[]),
+                          n_nodes=graph.n_nodes, inv=graph.inv)
+        with open(os.path.join(d, "graph.pkl"), "wb") as fh:
+            pickle.dump(handed, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        np.save(os.path.join(d, "features.npy"), feats.cpu().numpy())
+        torch.save({name: {k: v.cpu() for k, v in layer.items()}
+                    for name, layer in params.items()},
+                   os.path.join(d, "params.pt"))
+        t1 = time.perf_counter()
+        for precision in PRECISIONS:
+            ref = gcn_forward(params, graph, feats, cfg,
+                              plan=SpmmPlan(impl="reference", **blocks),
+                              precision=precision, device=dev)
+            torch.save(ref.cpu(), os.path.join(d, f"ref_{precision}.pt"))
+        print(f"phase 7: graph, features and weights written in "
+              f"{t1 - t0:.1f} s, the unsharded reference forwards in "
+              f"{time.perf_counter() - t1:.1f} s; {SHARD_RANKS} ranks on "
+              f"{min(n_cards, SHARD_RANKS)} card(s) over {backend}")
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=sharding_rank,
+                             args=(r, SHARD_RANKS, d, backend, dataset,
+                                   dataclasses.asdict(cfg)), daemon=True)
+                 for r in range(SHARD_RANKS)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + SHARD_SECONDS
+        while True:
+            codes = [proc.exitcode for proc in procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        for proc in procs:
+            if proc.exitcode is None:
+                proc.terminate()
+        for proc in procs:
+            proc.join(10)
+            if proc.exitcode is None:
+                proc.kill()
+                proc.join()
+        errors = []
+        for r, proc in enumerate(procs):
+            err = os.path.join(d, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as fh:
+                    errors.append(f"rank {r}: {fh.read().strip()}")
+            elif proc.exitcode != 0:
+                errors.append(f"rank {r}: exit code {proc.exitcode} (the "
+                              f"spawn's limit is {SHARD_SECONDS} s)")
+        check(not errors, "phase 7: " + "\n".join(errors))
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(d, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    for key in ranks[0]["configs"]:
+        print(f"phase 7: {key} forward median ms per rank "
+              + ", ".join(f"{rk['configs'][key]['ms']:.3f}" for rk in ranks))
+    return {"dataset": dataset, "card": card, "ranks": SHARD_RANKS,
+            "cards": n_cards, "ranks_per_card":
+                SHARD_RANKS / min(n_cards, SHARD_RANKS),
+            "backend": backend, "per_rank": ranks,
+            "note": ("ranks share one card: per-shard kernel times, not "
+                     "multi-GPU times") if n_cards < SHARD_RANKS else None}
+
+
+def sharding_rank(rank: int, world: int, directory: str, backend: str,
+                  dataset: str, cfg: dict) -> None:
+    """One rank of phase 7: joins the process group (a ``FileStore`` in
+    ``directory``), runs :func:`shard_forwards` and writes its record, or
+    its error, beside the inputs."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(directory, "store"),
+                                          world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=SHARD_SECONDS))
+        out = shard_forwards(torch, rank, world, directory, dataset, cfg)
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        os._exit(1)
+
+
+def shard_ledger_want(cost, pplan, n_nodes: int) -> dict:
+    """The collective bytes one forward under ``pplan`` records, by the
+    cost model's formulas (per-device ring bytes of each epilogue, and of
+    each row-sharded dense operand's all-gather: at ``F_in`` width for a
+    fused layer, ``F_out`` unfused)."""
+    want = {"psum": 0.0, "reduce_scatter": 0.0, "all_gather": 0.0}
+    for lp in pplan.layers:
+        plan = lp.spmm
+        n = plan.n_shards
+        act = 4 if plan.precision == "f32" else 2
+        if plan.out_layout == "row_sharded":
+            want["reduce_scatter"] += cost.reduce_scatter_bytes(
+                n_nodes, lp.f_out, n)
+        else:
+            want["psum"] += cost.psum_bytes(n_nodes, lp.f_out, n)
+        if plan.dense_layout == "row_sharded":
+            f = lp.f_in if plan.fused else lp.f_out
+            want["all_gather"] += cost.all_gather_bytes(n_nodes, f, n, act)
+    return want
+
+
+def shard_forwards(torch, rank: int, world: int, directory: str,
+                   dataset: str, cfg_fields: dict) -> dict:
+    """Every (config, chain) forward at every precision on this rank's
+    shard, each held against the unsharded reference forward; the launch
+    counts per precision, the ledger against the cost model's formulas,
+    one profile, and ``plan="auto"`` at this width."""
+    import math
+    import pickle
+
+    import numpy as np
+
+    from repro_torch.dist import collectives as coll
+    from repro_torch.exec.pipeline import plan_pipeline, static_pipeline
+    from repro_torch.exec.quant import logit_error
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flexvector_spmm as fv
+    from repro_torch.launch.mesh import make_data_mesh, mesh_device
+    from repro_torch.models.gcn import GCNConfig, gcn_forward
+    from repro_torch.plan import cost
+
+    _build.load_library()
+    mesh = make_data_mesh(world)
+    dev = mesh_device(mesh)
+    cfg = GCNConfig(**cfg_fields)
+    with open(os.path.join(directory, "graph.pkl"), "rb") as fh:
+        graph = pickle.load(fh)
+    feats = torch.as_tensor(np.load(os.path.join(directory, "features.npy")),
+                            device=dev)
+    params = {name: {k: v.to(dev) for k, v in layer.items()}
+              for name, layer in torch.load(
+                  os.path.join(directory, "params.pt")).items()}
+    refs = {p: torch.load(os.path.join(directory, f"ref_{p}.pt")).to(dev)
+            for p in PRECISIONS}
+    reps = SHARD_REPS[dataset]
+
+    def hold(key, out, precision, sharded_ref=None) -> dict:
+        check(tuple(out.shape) == (graph.n_nodes, cfg.out_dim)
+              and bool(torch.isfinite(out).all()),
+              f"rank {rank} {key}: logits {tuple(out.shape)}")
+        reading = {"vs_unsharded": agreement(torch, out, refs[precision])}
+        if precision == "int8":
+            # int8 values are re-quantized per shard (the shard boundaries
+            # are not on scale blocks): held against the sharded reference
+            # impl, and within the int8 logit budget of the f32 logits
+            reading["vs_sharded_reference"] = agreement(torch, out,
+                                                        sharded_ref)
+            reading["logit_error_vs_f32"] = logit_error(refs["f32"], out)
+            check(agrees(reading["vs_sharded_reference"],
+                         FORWARD_REL_TOL[precision], FORWARD_FLIP_SHARE)
+                  and reading["logit_error_vs_f32"] <= LOGIT_BUDGET["int8"],
+                  f"rank {rank} {key} disagrees: {reading}")
+        else:
+            check(agrees(reading["vs_unsharded"], FORWARD_REL_TOL[precision],
+                         FORWARD_FLIP_SHARE),
+                  f"rank {rank} {key} disagrees with the unsharded forward: "
+                  f"{describe(reading['vs_unsharded'])}")
+        return reading
+
+    def timed(fn) -> list:
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+
+    t0 = time.perf_counter()
+    configs, launches, paths = {}, {}, {}
+    for precision in PRECISIONS:
+        sharded_ref = {}
+        if precision == "int8":
+            for chain in SHARD_CHAINS:
+                pp = static_pipeline(cfg, mesh, impl="reference",
+                                     pipelined=chain == "pipelined",
+                                     precision=precision)
+                sharded_ref[chain] = gcn_forward(params, graph, feats, cfg,
+                                                 plan=pp, device=dev)
+        fv.reset_launches()
+        coll.reset_collective_calls()
+        for impl, fused in CONFIGS:
+            for chain in SHARD_CHAINS:
+                key = (f"{impl}{'+fused' if fused else ''}/{chain}"
+                       + ("" if precision == "f32" else f"@{precision}"))
+                pp = static_pipeline(cfg, mesh, impl=impl,
+                                     pipelined=chain == "pipelined",
+                                     precision=precision, fused=fused)
+                coll.LEDGER.reset()
+                out = gcn_forward(params, graph, feats, cfg, plan=pp,
+                                  device=dev)
+                torch.cuda.synchronize()
+                ledger = coll.LEDGER.snapshot()["bytes"]
+                want = shard_ledger_want(cost, pp, graph.n_nodes)
+                for kind, nbytes in want.items():
+                    check(math.isclose(ledger.get(kind, 0.0), nbytes,
+                                       rel_tol=1e-12),
+                          f"rank {rank} {key}: ledger {kind} "
+                          f"{ledger.get(kind, 0.0)} vs the model's {nbytes}")
+                reading = hold(key, out, precision, sharded_ref.get(chain))
+                times = timed(lambda: gcn_forward(params, graph, feats, cfg,
+                                                  plan=pp, device=dev))
+                configs[key] = {"ms": statistics.median(times),
+                                "times_ms": times, "ledger": ledger,
+                                **reading}
+        counts = dict(fv.PRECISION_LAUNCHES)
+        names = KERNELS[4:] if precision == "int8" else BASE
+        for name in names:
+            check(counts[f"{name}@{precision}"] > 0, f"rank {rank}: kernel "
+                  f"{name} was not launched on {precision} values on the "
+                  "sharded path")
+        other = {k: n for k, n in counts.items()
+                 if n and not k.endswith(f"@{precision}")}
+        check(not other, f"rank {rank}: the sharded {precision} forwards "
+              f"launched kernels on values of another precision: {other}")
+        launches[precision] = {name: counts[f"{name}@{precision}"]
+                               for name in names}
+        paths[precision] = dict(coll.COLLECTIVE_CALLS)
+
+    # the device kernels of one f32 forward of each config, by name
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plans = [static_pipeline(cfg, mesh, impl=impl, fused=fused)
+             for impl, fused in CONFIGS]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for pp in plans:
+            gcn_forward(params, graph, feats, cfg, plan=pp, device=dev)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    if kernels:
+        check(any(AGGREGATION_KERNEL in k for k in kernels)
+              and any(FUSED_KERNEL in k for k in kernels),
+              f"rank {rank}: the profile misses the port's kernels")
+        check(not any(lib in k.lower() for k in kernels
+                      for lib in LIBRARY_SPARSE),
+              f"rank {rank}: a library sparse kernel ran: {sorted(kernels)}")
+
+    auto = {}
+    for precision in PRECISIONS:
+        pp = plan_pipeline(cfg, graph.pre.ell, mesh=mesh, precision=precision,
+                           device=cost.H100)
+        fv.reset_launches()
+        out = gcn_forward(params, graph, feats, cfg, plan="auto", mesh=mesh,
+                          precision=precision, device_model=cost.H100)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n}
+        check(set(counts) == plan_kernels(pp), f"rank {rank} {precision} "
+              f"plan='auto' launched {sorted(counts)}, its plan names "
+              f"{sorted(plan_kernels(pp))}")
+        sharded_ref = None
+        if precision == "int8" and pp.n_shards > 1:
+            sharded_ref = gcn_forward(params, graph, feats, cfg, plan=(
+                static_pipeline(cfg, mesh, impl="reference", pipelined=any(
+                    lp.out_layout == "row_sharded" for lp in pp.layers),
+                    precision=precision)), device=dev)
+        if sharded_ref is None and precision == "int8":
+            sharded_ref = refs["int8"]
+        auto[precision] = {
+            "width": pp.n_shards, "plan": describe_plan(pp),
+            "layouts": [[lp.in_layout, lp.out_layout] for lp in pp.layers],
+            "modeled_ms": 1e3 * pp.cost_seconds, "launches": counts,
+            **hold(f"plan='auto' {precision}", out, precision, sharded_ref),
+            "ms": statistics.median(timed(
+                lambda: gcn_forward(params, graph, feats, cfg, plan=pp,
+                                    device=dev)))}
+    return {"rank": rank, "device": str(dev), "configs": configs,
+            "launches": launches, "collective_calls": paths,
+            "collective_path": sorted({k.split("@")[1] for calls in
+                                       paths.values() for k in calls}),
+            "profile_ms": kernels, "auto": auto,
+            "seconds": time.perf_counter() - t0}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -1534,7 +1887,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-6 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-7 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -1585,6 +1938,10 @@ def drive(torch, np, args, cache_dir: str) -> int:
     planning = phase_planning(torch, np, fv, registry, data, graph, cfg,
                               params, feats, dev, args.dataset)
     print(f"phase 6: {time.perf_counter() - t6:.1f} s")
+    t7 = time.perf_counter()
+    sharding = phase_sharding(torch, np, graph, cfg, params, feats, dev,
+                              args.dataset, card)
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -1620,6 +1977,12 @@ def drive(torch, np, args, cache_dir: str) -> int:
         else:
             line["launches"] = quant["launches"]["int8"][name]
             line.update(summary(name))
+        precision = "int8" if name.endswith("_scaled") else "f32"
+        line["sharding_launches"] = [
+            rk["launches"][precision][name] for rk in sharding["per_rank"]]
+        if name in BASE:
+            line["sharding_launches_bf16"] = [
+                rk["launches"]["bf16"][name] for rk in sharding["per_rank"]]
         line["serving_launches"] = {
             key: {how: {k: n for k, n in counts.items()
                         if k.split("@")[0] == name}
@@ -1644,6 +2007,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
         "registry": dataclasses.asdict(registry.stats)}}))
     print(json.dumps({"planning": dict(planning, dataset=args.dataset,
                                        card=card)}))
+    print(json.dumps({"sharding": sharding}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

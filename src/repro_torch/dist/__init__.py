@@ -1,1 +1,1 @@
-"""Traffic ledger; the multi-GPU collectives are a queued slice."""
+"""Mesh planning, the sharded SpMM's collectives and the traffic ledger."""

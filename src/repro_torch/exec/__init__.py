@@ -4,6 +4,7 @@
 * ``operands`` — :class:`SpmmOperands`, ELL tensors + host container;
 * ``dispatch`` — :func:`execute` / :func:`execute_layer`;
 * ``fused``    — :func:`execute_fused`, one launch per GCN layer;
+* ``sharded``  — :func:`execute_sharded`, the SpMM over a data mesh;
 * ``quant``    — the storage-precision policy (f32 / bf16 / int8).
 """
 
@@ -16,6 +17,7 @@ from repro_torch.exec.dispatch import (
     sub_row_products,
 )
 from repro_torch.exec.fused import execute_fused
+from repro_torch.exec.sharded import execute_sharded
 
 __all__ = [
     "IMPL_NAMES",
@@ -27,4 +29,5 @@ __all__ = [
     "prepare_precision",
     "sub_row_products",
     "execute_fused",
+    "execute_sharded",
 ]

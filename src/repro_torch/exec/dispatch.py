@@ -1,11 +1,12 @@
 """The single SpMM dispatch path.
 
 :func:`execute` resolves the plan, computes per-sub-row products with the
-planned impl and folds vertex-cut splits back with ``segment_accumulate``.
-:func:`execute_layer` is the layer-level entry of the GCN forward: a
-``fused=True`` plan with a kernel impl runs the one-launch fused layer
-(``exec.fused``), anything else runs the combination ``x @ w + b`` and the
-aggregation as two steps.
+planned impl and folds vertex-cut splits back with ``segment_accumulate``;
+a plan placed on a data mesh wider than one rank (or with a feature axis)
+runs sharded (``exec.sharded``).  :func:`execute_layer` is the
+layer-level entry of the GCN forward: a ``fused=True`` plan with a kernel
+impl runs the one-launch fused layer (``exec.fused``), anything else runs
+the combination ``x @ w + b`` and the aggregation as two steps.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.exec import quant
 from repro_torch.exec.fused import execute_fused, record_combination_dram
 from repro_torch.exec.operands import SpmmOperands
 from repro_torch.exec.plan import SpmmPlan
+from repro_torch.exec.sharded import execute_sharded
 from repro_torch.kernels import flexvector_spmm as fv
 from repro_torch.kernels.ref import spmm_ell_ref
 
@@ -136,25 +138,34 @@ def execute_layer(
     under the plan's fusion decision.
 
     The reference impl always runs unfused (a gather has no launch to
-    fuse).  The unfused combination's DRAM traffic is ledgered so fused
-    and unfused byte totals compare honestly.  ``layer`` holds ``"w"``/
-    ``"b"`` and, for int8 weights, ``"w_scale"`` with ``w_block_rows``
-    granularity (``quant.quantize_params``).
+    fuse), as do feature-sharded plans.  The unfused combination's DRAM
+    traffic is ledgered so fused and unfused byte totals compare honestly
+    (at the global height: under ``dense_layout="row_sharded"`` ``x`` is
+    this rank's row slice, and the combination runs on it alone).
+    ``layer`` holds ``"w"``/``"b"`` and, for int8 weights, ``"w_scale"``
+    with ``w_block_rows`` granularity (``quant.quantize_params``).
     """
     plan = plan.resolve(schedulable=operands.schedulable)
-    if plan.fused and plan.effective_impl != "reference":
+    if (plan.fused and plan.effective_impl != "reference"
+            and not plan.feature_sharded):
         return execute_fused(plan, operands, x, layer,
                              w_block_rows=w_block_rows)
     xw = quant.affine(x, layer, plan.precision, w_block_rows)
-    record_combination_dram(plan, x.shape[0], x.shape[1], int(xw.shape[1]))
+    rows = x.shape[0]
+    if plan.sharded and plan.dense_layout == "row_sharded":
+        rows *= plan.n_shards
+    record_combination_dram(plan, rows, x.shape[1], int(xw.shape[1]))
     return execute(plan, operands, xw)
 
 
 def execute(
     plan: SpmmPlan, operands: SpmmOperands, dense: torch.Tensor
 ) -> torch.Tensor:
-    """Run one planned SpMM: ``A @ dense`` for the bounded-row sparse ``A``."""
+    """Run one planned SpMM: ``A @ dense`` for the bounded-row sparse ``A``,
+    on one device or, on a data mesh, sharded (this rank's shard of it)."""
     plan = plan.resolve(schedulable=operands.schedulable)
+    if plan.sharded or plan.feature_sharded:
+        return execute_sharded(plan, operands, dense)
     vals, scales, dense = prepare_precision(plan, operands, dense)
     r, tau = operands.cols.shape
     record_spmm_dram(plan, r, tau, dense.shape[0], dense.shape[1],

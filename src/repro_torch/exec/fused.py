@@ -14,8 +14,12 @@ values from :meth:`SpmmOperands.values_for`, ``x`` and ``w`` in bf16
 bf16 inside the kernel (``cast_xw``) where the unfused path rounds it
 between its two launches (``quant.cast_dense``).
 
-Single device only: the sharded fused path waits for the multi-GPU
-slice.
+On a data mesh (``exec.sharded``'s shard contract) each rank runs one
+fused launch on its own shard of the sub-rows, with its shard's slot
+lists, then the sharded executor's fold and collective; a row-sharded
+``X`` is all-gathered before the launch, at ``F_in`` width (the unfused
+path gathers the ``F_out``-wide ``X W + b``).  Feature-axis plans run
+unfused (``dispatch.execute_layer``).
 """
 
 from __future__ import annotations
@@ -193,11 +197,18 @@ def execute_fused(
     ``"w"`` + ``"w_scale"`` of ``w_block_rows`` granularity.
     """
     plan = plan.resolve(schedulable=operands.schedulable)
+    if plan.feature_sharded:
+        raise ValueError(
+            "fused execution does not split the feature axis: the fused "
+            "launch forms whole rows of X W + b; plan such layers unfused"
+        )
     if plan.effective_impl == "reference":
         raise ValueError(
             "the reference impl has no kernel launch to fuse; dispatch "
             "through exec.dispatch.execute_layer, which runs it unfused"
         )
+    if plan.sharded:
+        return _execute_fused_sharded(plan, operands, x, layer, w_block_rows)
     name, args, kw, (r, f_out) = fused_args(plan, operands, x, layer,
                                             w_block_rows)
     k, f_in = x.shape
@@ -209,3 +220,47 @@ def execute_fused(
     sub = fv.KERNELS[name](*args, **kw)
     return segment_accumulate(sub[:r, :f_out], operands.row_map,
                               operands.n_out_rows)
+
+
+def _execute_fused_sharded(
+    plan: SpmmPlan, operands: SpmmOperands, x: torch.Tensor, layer: dict,
+    w_block_rows: int,
+) -> torch.Tensor:
+    """One fused launch on this rank's shard of the sub-rows (the unfused
+    sharded executor's split, without the reserved block), then its fold
+    and collective.  ``x`` is this rank's row slice under
+    ``dense_layout="row_sharded"`` (all-gathered here, at ``F_in`` width),
+    else the whole layer input."""
+    from repro_torch.exec.sharded import epilogue, placement, rank_operands
+
+    where = placement(plan, operands)
+    n = plan.n_shards
+    shard = rank_operands(plan, operands, where.d, reserve=False)
+    rows = operands.sharded(n, plan.block_rows, False,
+                            plan.shard_split).cols.shape[0]
+    if plan.precision != "f32":
+        x = x.to(torch.bfloat16)   # gathered at the storage width
+    k = x.shape[0] * (n if where.row_dense else 1)
+    f_in = x.shape[1]
+    f_out = layer["w"].shape[1]
+    record_fused_dram(
+        plan, rows, operands.cols.shape[1], k, f_in, f_out, where.n_out,
+        n_fb=_round_up(f_out, plan.block_f) // plan.block_f,
+        occ_frac=_occupied_frac(plan, operands),
+    )
+    act_b = x.element_size()
+    if where.row_dense:
+        LEDGER.record("all_gather", (n - 1) / n * k * f_in * act_b)
+    if where.row_out:
+        LEDGER.record("reduce_scatter",
+                      (n - 1) / n * where.n_out_pad * f_out * 4)
+    else:
+        LEDGER.record("psum", 2.0 * (n - 1) / n * where.n_out * f_out * 4)
+    if where.row_dense:
+        from repro_torch.dist.collectives import all_gather_rows
+
+        x = all_gather_rows(x, where.group)
+    name, args, kw, (r, f_out) = fused_args(plan, shard, x, layer,
+                                            w_block_rows)
+    sub = fv.KERNELS[name](*args, **kw)
+    return epilogue(sub[:r, :f_out], shard.row_map, where)

@@ -1,17 +1,15 @@
-"""SpMM execution plans (single device).
+"""SpMM execution plans.
 
 An :class:`SpmmPlan` captures every launch decision once — impl, block
-sizes, fusion — so the GCN forward and the entry points dispatch through
-one pipeline.  :meth:`SpmmPlan.resolve` pins the impl that will run: the
-block-skipping ``cuda_sparse`` schedule needs host-side occupancy planning
-over a :class:`TiledELL`, so operands without one degrade to the
-dense-grid ``cuda`` kernel, with a warning and the switch recorded on the
-resolved plan.
+sizes, fusion, placement on a data mesh — so the GCN forward and the entry
+points dispatch through one pipeline.  :meth:`SpmmPlan.resolve` pins the
+impl that will run: the block-skipping ``cuda_sparse`` schedule needs
+host-side occupancy planning over a :class:`TiledELL`, so operands
+without one degrade to the dense-grid ``cuda`` kernel, with a warning and
+the switch recorded on the resolved plan.
 
 :func:`plan_for_config` builds the static plan from a config, or, given
 the host ELL, the cost model's choice (``repro_torch.plan.autoplan``).
-The mesh, the output layouts and feature-axis sharding of the reference
-plan wait for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ import dataclasses
 import warnings
 from typing import Optional
 
+from repro_torch.dist.topology import axis_sizes
 from repro_torch.exec import quant
 
 #: The reference's impl names -> the port's.  The one mapping table.
@@ -29,11 +28,29 @@ IMPL_NAMES = {
     "pallas_sparse": "cuda_sparse",
 }
 VALID_IMPLS = tuple(IMPL_NAMES.values())
+VALID_LAYOUTS = ("replicated", "row_sharded")
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmPlan:
     """Immutable execution plan for one SpMM configuration.
+
+    ``mesh``/``data_axis`` place it: a mesh whose ``data`` axis is wider
+    than one rank routes :func:`~repro_torch.exec.dispatch.execute` through
+    the sharded path (``exec.sharded``); no mesh, or a 1-wide one, runs on
+    one device.  The mesh is the ``DeviceMesh`` of
+    ``repro_torch.launch.mesh.make_data_mesh``, or, for planning only, an
+    abstract one (``dist.topology.abstract_mesh``).
+
+    ``dense_layout``/``out_layout`` pick the sharded path's prologue and
+    epilogue: a ``row_sharded`` output is reduce-scattered (each rank keeps
+    its contiguous slice of output rows, the layout a following sharded
+    layer consumes), a ``row_sharded`` dense operand is all-gathered before
+    the aggregation.  Both act as ``replicated`` on a 1-wide data axis.
+    ``feature_axis`` names a second mesh axis that splits the dense
+    operand's feature dimension (each feature shard computes every row of
+    its F slice; the output stays feature-sharded).  ``shard_split`` places
+    the sub-row boundaries (nnz-weighted or uniform).
 
     ``effective_impl``/``degraded_reason`` are the resolution record; they
     are ``None`` on an unresolved plan.
@@ -44,6 +61,12 @@ class SpmmPlan:
     block_k: int = 128
     block_f: int = 128
     hot_k_first: bool = True          # sparse-grid schedule: hot k-tiles lead
+    mesh: Optional[object] = None
+    data_axis: str = "data"
+    shard_split: str = "nnz"          # sub-row split: nnz-weighted | uniform
+    dense_layout: str = "replicated"  # dense operand: replicated | row_sharded
+    out_layout: str = "replicated"    # epilogue: psum | reduce-scatter
+    feature_axis: Optional[str] = None  # mesh axis splitting the F dimension
     precision: str = "f32"            # storage precision (exec.quant)
     fused: bool = False               # fuse combination + aggregation per layer
     effective_impl: Optional[str] = None
@@ -54,7 +77,43 @@ class SpmmPlan:
             raise ValueError(
                 f"unknown impl: {self.impl} (expected one of {VALID_IMPLS})"
             )
+        if self.shard_split not in ("nnz", "uniform"):
+            raise ValueError(
+                f"unknown shard_split: {self.shard_split} "
+                "(expected 'nnz' or 'uniform')"
+            )
+        for name in ("dense_layout", "out_layout"):
+            if getattr(self, name) not in VALID_LAYOUTS:
+                raise ValueError(
+                    f"unknown {name}: {getattr(self, name)} "
+                    f"(expected one of {VALID_LAYOUTS})"
+                )
         quant.validate_precision(self.precision)
+
+    # -- placement ----------------------------------------------------------
+
+    def _axis(self, name: Optional[str]) -> int:
+        if self.mesh is None or name is None:
+            return 1
+        return axis_sizes(self.mesh).get(name, 1)
+
+    @property
+    def n_shards(self) -> int:
+        return self._axis(self.data_axis)
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_shards > 1
+
+    @property
+    def n_feature_shards(self) -> int:
+        return self._axis(self.feature_axis)
+
+    @property
+    def feature_sharded(self) -> bool:
+        return self.n_feature_shards > 1
+
+    # -- resolution ---------------------------------------------------------
 
     @property
     def resolved(self) -> bool:
@@ -90,6 +149,7 @@ class SpmmPlan:
 
 def plan_for_config(
     cfg,
+    mesh=None,
     *,
     ell=None,
     feature_dim: Optional[int] = None,
@@ -100,10 +160,11 @@ def plan_for_config(
     ``block_f``).
 
     Without ``ell`` this is the *static* plan: the config's impl and block
-    sizes.  With ``ell`` (a host
+    sizes, placed on ``mesh``.  With ``ell`` (a host
     :class:`~repro_torch.core.sparse_formats.TiledELL`) the choice routes
     through the cost model instead: ``repro_torch.plan.autoplan``
-    enumerates impl x block sizes and returns the argmin-cost plan (never
+    enumerates impl x block sizes x data-mesh widths and returns the
+    argmin-cost plan (never
     costed worse than the static default, which is always a candidate).
     ``feature_dim`` defaults to the config's hidden width — the dominant
     SpMM feature dimension in a GCN stack.
@@ -115,6 +176,7 @@ def plan_for_config(
             ell,
             feature_dim or getattr(cfg, "hidden_dim", 128),
             cfg,
+            mesh=mesh,
             n_devices=n_devices,
         )
     return SpmmPlan(
@@ -122,4 +184,5 @@ def plan_for_config(
         block_rows=cfg.block_rows,
         block_k=cfg.block_k,
         block_f=cfg.block_f,
+        mesh=mesh,
     )

@@ -90,11 +90,18 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
     ap.add_argument("--runtime-async", action="store_true",
                     help="drive the batched scenario through the async "
                          "runtime (ROADMAP item A10, not ported yet)")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="width of the data mesh to shard batched query "
+                         "chunks over (ROADMAP item A9b, not ported yet)")
     ap.add_argument("--fleet-config", default=None,
                     help="multi-tenant fleet scenario (ROADMAP item A12, not "
                          "ported yet)")
     args = ap.parse_args(argv)
 
+    if args.mesh > 1:
+        raise NotImplementedError(
+            "--mesh: sharding batched query chunks over ranks is ROADMAP "
+            "item A9b (the serving mesh), not ported yet")
     if args.fleet_config:
         raise NotImplementedError(
             "--fleet-config: the servable fleet is ROADMAP item A12, not "

@@ -136,6 +136,7 @@ def gcn_forward(
     device: Device = None,
     mesh=None,
     device_model=None,
+    out_layout: str = "replicated",
 ) -> torch.Tensor:
     """Full-graph forward pass; logits in original node order.
 
@@ -149,7 +150,17 @@ def gcn_forward(
     also be passed directly.  Every plan runs through
     :func:`~repro_torch.exec.pipeline.pipeline_forward`.  Runs on
     ``"cuda"`` unless ``device`` says otherwise; ``params`` must already
-    be there.  A data ``mesh`` is ROADMAP item A9.
+    be there.
+
+    ``mesh`` (a ``DeviceMesh`` from ``launch.mesh.make_data_mesh``; every
+    rank calls the forward) shards each layer's row-tile grid over its
+    ``data`` axis: the static plan of ``cfg`` is placed on it, and under
+    ``plan="auto"`` it bounds the widths the planner may pick.  Each rank
+    returns its shard of the logits (``exec.sharded``'s shard contract):
+    all of them, unless ``out_layout="row_sharded"`` asks for the output
+    left row-sharded (this rank's slice of the padded height, in the
+    permuted node order, no inverse permutation: the form a following
+    sharded stage consumes).  The device defaults to the mesh's.
 
     ``precision`` (``f32`` | ``bf16`` | ``int8``, ``exec.quant``
     semantics) is stamped on the plan (on every layer's under
@@ -161,25 +172,26 @@ def gcn_forward(
     from repro_torch.exec.pipeline import (GcnPipelinePlan, pipeline_forward,
                                            plan_pipeline, uniform_pipeline)
 
-    dev = resolve_device(device)
     quant.validate_precision(precision)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharding the forward over cards is ROADMAP item A9 "
-            "(multi-GPU sharding), not ported yet")
+    if device is None and hasattr(mesh, "get_group"):
+        from repro_torch.launch.mesh import mesh_device
+
+        device = mesh_device(mesh)
     if isinstance(plan, str):
         if plan != "auto":
             raise ValueError(f"unknown plan: {plan!r} (expected 'auto')")
-        plan = plan_pipeline(cfg, graph.pre.ell, n_layers=len(params),
+        plan = plan_pipeline(cfg, graph.pre.ell, mesh=mesh,
+                             n_layers=len(params), out_layout=out_layout,
                              precision=precision, device=device_model)
     if not isinstance(plan, GcnPipelinePlan):
         if plan is None:
-            plan = plan_for_config(cfg)
+            plan = plan_for_config(cfg, mesh=mesh)
         if precision != "f32" and plan.precision != precision:
             plan = dataclasses.replace(plan, precision=precision)
         plan = uniform_pipeline(plan, [
-            tuple(params[f"layer_{i}"]["w"].shape) for i in range(len(params))])
-    return pipeline_forward(params, graph, features, plan, device=dev)
+            tuple(params[f"layer_{i}"]["w"].shape) for i in range(len(params))],
+            out_layout=out_layout)
+    return pipeline_forward(params, graph, features, plan, device=device)
 
 
 def gcn_loss(params, graph, features, labels, cfg, mask=None, plan=None,

@@ -1,8 +1,9 @@
 """Cost-model SpMM plan selection.
 
 The port of ``repro.plan.autoplan``.  Enumerate candidate
-:class:`~repro_torch.exec.plan.SpmmPlan`s — impl x block sizes (x storage
-precision, x fusion when the layer's input width is given) — score each
+:class:`~repro_torch.exec.plan.SpmmPlan`s — impl x block sizes x data-mesh
+widths (x storage precision, x fusion when the layer's input width is
+given) — score each
 with :mod:`repro_torch.plan.cost`, and return the argmin-cost plan.  The
 static default (the plan ``exec.plan.plan_for_config`` builds from the
 config alone) is always the first candidate, so autoplan never chooses a
@@ -16,8 +17,12 @@ when it is the config's own impl: the planner never moves a plan from a
 kernel to it.  Under the Pallas model the candidate set is the
 reference's.
 
-One card: data-mesh widths above 1 (``mesh=``, ``n_devices > 1``,
-``widths``) are ROADMAP item A9, and measured-latency ``feedback`` is A11.
+A width above 1 is priced against the achievable balance of the
+nnz-weighted split it would use, and placed on ``mesh`` (a
+``DeviceMesh``, or an abstract mesh for planning only); without a mesh,
+the widths are those the initialized process group can place
+(:func:`placeable_widths`).  Measured-latency ``feedback`` is ROADMAP item
+A11.
 """
 
 from __future__ import annotations
@@ -27,17 +32,11 @@ import math
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.core.sparse_formats import TiledELL
-from repro_torch.dist.topology import viable_mesh_shapes
+from repro_torch.dist.topology import axis_sizes, viable_mesh_shapes
 from repro_torch.exec.plan import VALID_IMPLS, SpmmPlan
 from repro_torch.plan import cost as cost_mod
 
 BLOCK_CANDIDATES = (16, 32, 64, 128)
-
-
-def _unported_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: data-mesh widths above 1 are ROADMAP item A9 (multi-GPU "
-        "sharding), not ported yet")
 
 
 def _unported_feedback() -> NotImplementedError:
@@ -60,7 +59,7 @@ class PlanChoice:
         p = self.plan
         return (
             f"{p.impl} rows={p.block_rows} k={p.block_k} f={p.block_f} "
-            f"data=1 prec={p.precision} fused={p.fused} "
+            f"data={p.n_shards} prec={p.precision} fused={p.fused} "
             f"(bound {self.cost.seconds:.3e}s vs static "
             f"{self.static_cost.seconds:.3e}s)"
         )
@@ -71,6 +70,29 @@ def candidate_widths(n_devices: int) -> Tuple[int, ...]:
     ``data`` values of every (data, model) factorization."""
     return tuple(sorted({d for d, _ in viable_mesh_shapes(n_devices,
                                                           n_devices)}))
+
+
+def placeable_widths(widths: Sequence[int]) -> Tuple[int, ...]:
+    """The ``widths`` a plan can be placed at without a given mesh: 1, and
+    the world size of the initialized default process group
+    (``launch.mesh.make_data_mesh`` lays out every rank of it)."""
+    import torch.distributed as dist
+
+    world = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    return tuple(w for w in widths if w == 1 or w == world)
+
+
+def _data_mesh(width: int, mesh, mesh_width: int):
+    """The mesh a width-``width`` plan runs on: none at width 1, ``mesh``
+    at its own width, else a data mesh over the process group."""
+    if width <= 1:
+        return None
+    if mesh is not None and width == mesh_width:
+        return mesh
+    from repro_torch.launch.mesh import make_data_mesh  # deferred: no cycle
+
+    return make_data_mesh(width)
 
 
 def _as_stats(graph) -> cost_mod.GraphStats:
@@ -106,7 +128,12 @@ def choose_plan(
 
     ``graph`` is a host :class:`TiledELL` (exact occupancy) or a
     :class:`~repro_torch.plan.cost.GraphStats` (planned shapes, e.g. a
-    serving bucket).  ``schedulable`` says whether the execution context
+    serving bucket).  ``mesh`` restricts the placement candidates to {1,
+    its data width}; otherwise widths come from ``n_devices`` (default 1),
+    those the process group can place (:func:`placeable_widths`).  An
+    explicit ``widths`` pins them (the pipeline planner fixes one width
+    for every layer); the static baseline is scored at the mesh width.
+    ``schedulable`` says whether the execution context
     can plan the ``cuda_sparse`` block-skipping grid host-side; when it
     cannot, that impl is excluded instead of being costed as something it
     will not run.
@@ -126,8 +153,6 @@ def choose_plan(
     """
     if feedback is not None:
         raise _unported_feedback()
-    if mesh is not None:
-        raise _unported_mesh("mesh=")
     device = cost_mod.model_or_default(device)
     stats = _as_stats(graph)
     errs = dict(precision_errors or {})
@@ -160,13 +185,18 @@ def choose_plan(
         i for i in impls if schedulable or i != "cuda_sparse"
     ) or ("reference",)
 
-    if widths is None:
-        widths = candidate_widths(max(n_devices or 1, 1))
+    if mesh is not None:
+        mesh_width = axis_sizes(mesh).get("data", 1)
+        if widths is None:
+            widths = tuple(sorted({1, mesh_width}))
+    else:
+        mesh_width = 1
+        if widths is None:
+            widths = candidate_widths(max(n_devices or 1, 1))
+        widths = placeable_widths(widths)
     widths = tuple(
         w for w in widths if w == 1 or w <= max(stats.n_sub_rows, 1)
     ) or (1,)
-    if max(widths) > 1:
-        raise _unported_mesh(f"widths {widths}")
 
     def blocks_for(base: int) -> Tuple[int, ...]:
         ordered = tuple(sorted(set(block_candidates) | {base}))
@@ -177,20 +207,24 @@ def choose_plan(
         # when the impl changes too.
         return (base,) + tuple(b for b in ordered if b != base)
 
-    def layer_score(impl, br, bk, bf, precision, fuse):
+    def layer_score(impl, br, bk, bf, width, precision, fuse):
         """(comparison seconds, CostBreakdown receipt) for one candidate:
-        the SpMM alone without ``f_in``, the whole layer with it."""
+        the SpMM alone without ``f_in``, the whole layer with it.  A width
+        above 1 is priced against the balance of the nnz-weighted split
+        it would use."""
+        imb = cost_mod.width_imbalance(stats, width)
         if fuse:
             c = cost_mod.fused_layer_cost(
                 stats, f_in, feature_dim, impl=impl, block_rows=br,
-                block_k=bk, block_f=bf, dtype_bytes=dtype_bytes,
-                precision=precision, device=device,
+                block_k=bk, block_f=bf, n_shards=width,
+                dtype_bytes=dtype_bytes, precision=precision,
+                shard_imbalance=imb, device=device,
             )
             return c.seconds, c
         c = cost_mod.spmm_cost(
             stats, feature_dim, impl=impl, block_rows=br, block_k=bk,
-            block_f=bf, n_shards=1, dtype_bytes=dtype_bytes,
-            precision=precision, shard_imbalance=1.0, device=device,
+            block_f=bf, n_shards=width, dtype_bytes=dtype_bytes,
+            precision=precision, shard_imbalance=imb, device=device,
         )
         if f_in is None:
             return c.seconds, c
@@ -200,22 +234,22 @@ def choose_plan(
         )
         return c.seconds + comb, c
 
-    def fuse_options(impl, br, bk, bf, precision):
+    def fuse_options(impl, br, bk, bf, width, precision):
         if f_in is None or impl == "reference":
             return (False,)
         if not cost_mod.fused_viable(
             stats, f_in, block_rows=br, block_k=bk, block_f=bf,
-            precision=precision, n_shards=1, device=device, impl=impl,
+            precision=precision, n_shards=width, device=device, impl=impl,
         ):
             return (False,)
         return (False, True)
 
-    # The static default leads: what plan_for_config(cfg) builds.
+    # The static default leads: what plan_for_config(cfg, mesh) builds.
     static_impl = base_impl if (
         schedulable or base_impl != "cuda_sparse") else "cuda"
     static_secs, static_cost = layer_score(
-        static_impl, *base_blocks, "f32", False)
-    best = (static_impl, *base_blocks, "f32", False)
+        static_impl, *base_blocks, mesh_width, "f32", False)
+    best = (static_impl, *base_blocks, mesh_width, "f32", False)
     best_secs, best_cost = static_secs, static_cost
 
     n_cand = 1
@@ -223,28 +257,30 @@ def choose_plan(
         for br in blocks_for(base_blocks[0]):
             for bk in blocks_for(base_blocks[1]):
                 for bf in blocks_for(base_blocks[2]):
-                    for _ in widths:
+                    for w in widths:
                         for prec in precs:
-                            for fuse in fuse_options(impl, br, bk, bf, prec):
+                            for fuse in fuse_options(impl, br, bk, bf, w,
+                                                     prec):
                                 n_cand += 1
-                                s, c = layer_score(impl, br, bk, bf, prec,
+                                s, c = layer_score(impl, br, bk, bf, w, prec,
                                                    fuse)
                                 if s < best_secs:
-                                    best = (impl, br, bk, bf, prec, fuse)
+                                    best = (impl, br, bk, bf, w, prec, fuse)
                                     best_secs, best_cost = s, c
 
-    impl, br, bk, bf, precision, fused = best
+    impl, br, bk, bf, width, precision, fused = best
     hot_k_first = True
     if impl == "cuda_sparse" and stats.ell is not None:
         hot_k_first = choose_hot_k_first(
             stats.ell, feature_dim, block_rows=br, block_k=bk, block_f=bf)
     plan = SpmmPlan(
         impl=impl, block_rows=br, block_k=bk, block_f=bf,
-        hot_k_first=hot_k_first, precision=precision, fused=fused,
+        mesh=_data_mesh(width, mesh, mesh_width), hot_k_first=hot_k_first,
+        precision=precision, fused=fused,
     )
     static_plan = SpmmPlan(
         impl=base_impl, block_rows=base_blocks[0], block_k=base_blocks[1],
-        block_f=base_blocks[2],
+        block_f=base_blocks[2], mesh=mesh,
     )
     return PlanChoice(
         plan=plan, cost=best_cost, static_plan=static_plan,

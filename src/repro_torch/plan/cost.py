@@ -47,7 +47,13 @@ the port's own kernels move on the card instead (``csrc/flexvector_spmm.cu``):
 * a fixed host cost per launch, which the device overlaps: a term costs
   the larger of its device time and its launches' host time, so tiny
   host-bound shapes are not priced in microseconds.  The launches are the
-  torch ops the dispatch runs for the step, counted as it runs them.
+  torch ops the dispatch runs for the step, counted as it runs them;
+* on a data mesh of ``n_shards`` ranks, one rank's share: the work above
+  times ``shard_imbalance / n_shards`` (the heaviest shard sets the
+  time), then the epilogue's collective (and a row-sharded dense
+  operand's all-gather) at the reference's per-device ring bytes over
+  ``ici_bw``, after the kernels (the port does not overlap them), and one
+  launch per collective.
 
 Everything here is numpy + dataclasses over host statistics; the H100
 terms borrow the kernel wrappers' own width, slab and chunk rules.
@@ -154,9 +160,11 @@ TPU_V5E = DeviceModel()
 
 #: One NVIDIA H100 SXM (80 GB HBM3) running the port's kernels: the
 #: published peaks (HBM3 3.35 TB/s, 989 TFLOP/s dense bf16 on the tensor
-#: cores; NVLink 450 GB/s a direction) and the kernels' rates fitted on
-#: the card by ``scripts/fit_device_model.py`` at PubMed and Reddit
-#: (``PERF.md`` records the run, the card and its power limit).
+#: cores) and the kernels' rates fitted on the card by
+#: ``scripts/fit_device_model.py`` at PubMed and Reddit (``PERF.md``
+#: records the run, the card and its power limit).  ``ici_bw`` is NVLink
+#: 4's published 450 GB/s a direction, not fitted: one card cannot
+#: measure a link between two.
 H100 = DeviceModel(
     name="h100-sxm",
     peak_flops=989e12,
@@ -510,10 +518,25 @@ def _add_work(*works: dict) -> dict:
     return out
 
 
+def _sharded_work(work: dict, n_shards: int, shard_imbalance: float,
+                  collective_bytes: float, collectives: int) -> dict:
+    """One rank's share of ``work`` on a data mesh: every byte, FLOP and
+    slot visit times ``imbalance / n_shards``, the launches as they are,
+    plus the collectives' per-device bytes and one launch each."""
+    if n_shards <= 1:
+        return work
+    scale = max(float(shard_imbalance), 1.0) / n_shards
+    out = {k: (v if k == "launches" else v * scale) for k, v in work.items()}
+    out["collective"] = collective_bytes
+    out["launches"] += collectives
+    return out
+
+
 def cuda_spmm_work(stats: GraphStats, feature_dim: int, *, impl: str = "cuda",
                    block_rows: int = 128, block_k: int = 128,
                    precision: str = "f32", dtype_bytes: int = 4,
-                   idx_bytes: int = 4) -> dict:
+                   idx_bytes: int = 4, n_shards: int = 1,
+                   dense_rows: Optional[int] = None) -> dict:
     """Work of one aggregation and its fold on the port's kernels.
 
     ``cuda``/``cuda_sparse`` (B1/B2): the dense operand cast to bf16 under
@@ -524,11 +547,18 @@ def cuda_spmm_work(stats: GraphStats, feature_dim: int, *, impl: str = "cuda",
     ``cuda_sparse`` a bitmap test per slot and slab (``bitmap``).
     ``reference``: the plain gather, a gathered (R, F) temporary per ELL
     column with its product and running sum.  Then the fold.
+
+    The launches are one dispatch's, on one device or, with ``n_shards >
+    1``, on one shard (whose rows are whole blocks, so it pads none) of a
+    ``dense_rows``-row dense operand (default the graph's K; a
+    row-sharded operand arrives at the height padded to the mesh).
     """
     f = max(feature_dim, 1)
     val_bytes, act_bytes = _storage_bytes(precision, dtype_bytes)
     r_pad = _round_up(stats.padded_rows, block_rows)
     k = max(stats.n_dense_rows, 1)
+    k_in = k if dense_rows is None else dense_rows
+    row_pads = 2 * (r_pad != stats.padded_rows and n_shards <= 1)
     scales = _ceil_div(r_pad, block_rows) * 4.0 if precision == "int8" else 0.0
     cast = float(k) * f * (4 + act_bytes) if precision != "f32" else 0.0
     ell = float(r_pad) * stats.tau * (idx_bytes + val_bytes)
@@ -550,8 +580,8 @@ def cuda_spmm_work(stats: GraphStats, feature_dim: int, *, impl: str = "cuda",
                 "gather": float(stats.nnz) * row_cols * act_bytes,
                 # fv.pad_operands: the table's rows (cols and vals) and
                 # the dense operand, where not whole blocks; the kernel
-                "launches": (2 * (r_pad != stats.padded_rows)
-                             + (k % block_k != 0 or row_cols != f) + 1)}
+                "launches": (row_pads
+                             + (k_in % block_k != 0 or row_cols != f) + 1)}
         if impl == "cuda_sparse":
             work["bitmap"] = float(stats.nnz) * n_slabs
     else:
@@ -565,7 +595,9 @@ def cuda_fused_work(stats: GraphStats, f_in: int, f_out: int, *,
                     impl: str = "cuda", block_rows: int = 128,
                     block_k: int = 128, block_f: int = 128,
                     precision: str = "f32",
-                    dtype_bytes: int = 4, idx_bytes: int = 4) -> dict:
+                    dtype_bytes: int = 4, idx_bytes: int = 4,
+                    n_shards: int = 1,
+                    dense_rows: Optional[int] = None) -> dict:
     """Work of one fused layer on the port's kernel (B3/B4), then its fold.
 
     ``hbm``: the zero fill of the ``(R, block_f)``-padded f32 output, the
@@ -575,12 +607,15 @@ def cuda_fused_work(stats: GraphStats, f_in: int, f_out: int, *,
     of the row's real columns per run (``GraphStats.scatter_runs``);
     ``tile_flops``: each chunk's (64, 128) tile of ``X W + b`` over the
     16-byte-rounded input width (``GraphStats.column_chunks`` per 128
-    output columns); under ``cuda_sparse`` a bitmap test per slot.
+    output columns); under ``cuda_sparse`` a bitmap test per slot.  The
+    launches as :func:`cuda_spmm_work` counts them (``dense_rows`` is the
+    height of ``X``).
     """
     f = max(f_out, 1)
     val_bytes, act_bytes = _storage_bytes(precision, dtype_bytes)
     r_pad = _round_up(stats.padded_rows, block_rows)
     k = max(stats.n_dense_rows, 1)
+    k_in = k if dense_rows is None else dense_rows
     f_pad = _round_up(f, block_f)
     act = _act_dtype(precision)
     f_in_a = fv.aligned_width(f_in, act)
@@ -600,8 +635,8 @@ def cuda_fused_work(stats: GraphStats, f_in: int, f_out: int, *,
         # blocks or 16-byte rows (fused_args, fv.pad_fused_operands, the
         # wrapper's w stride); the zeroed output and the kernel
         "launches": (_FUSED_CAST_LAUNCHES[precision]
-                     + 2 * (r_pad != stats.padded_rows)
-                     + _copy_launches(k % block_k != 0 or f_in_a != f_in)
+                     + 2 * (r_pad != stats.padded_rows and n_shards <= 1)
+                     + _copy_launches(k_in % block_k != 0 or f_in_a != f_in)
                      + _copy_launches(f_in_a != f_in or f_pad != f)
                      + (f_pad != f)
                      + _copy_launches(fv.aligned_width(f_pad, act) != f_pad)
@@ -631,10 +666,12 @@ def cuda_seconds(work: dict, precision: str, device: DeviceModel) -> Tuple[float
     """``(device seconds, host seconds)`` of one step's work at ``device``'s
     rates: each kind of traffic at its own rate, one after the other (the
     steps are separate launches or phases of one); the matmul at the
-    larger of its FLOP and byte time; the launches at ``launch_s`` each."""
+    larger of its FLOP and byte time; the collectives' bytes at
+    ``ici_bw``; the launches at ``launch_s`` each."""
     r = device.cuda
     tile_rate = r.tile_flops_f32 if precision == "f32" else r.tile_flops_bf16
-    t = (work.get("hbm", 0.0) / device.hbm_bw
+    t = (work.get("collective", 0.0) / device.ici_bw
+         + work.get("hbm", 0.0) / device.hbm_bw
          + work.get("gather", 0.0) / r.gather_bw
          + work.get("bitmap", 0.0) * r.bitmap_s
          + work.get("fold", 0.0) / r.fold_bw
@@ -650,25 +687,36 @@ def _cuda_cost(work: dict, flops: float, precision: str,
     device_s, host_s = cuda_seconds(work, precision, device)
     dram = (work.get("hbm", 0.0) + work.get("scatter", 0.0)
             + work.get("fold", 0.0))
+    coll = work.get("collective", 0.0)
     return CostBreakdown(
         flops=flops,
         dram_bytes=dram,
-        collective_bytes=0.0,
+        collective_bytes=coll,
         sram_pj=0.0,
         dram_pj=dram * device.dram_pj_per_byte,
         compute_s=0.0,
         memory_s=device_s,
-        collective_s=0.0,
+        collective_s=coll / device.ici_bw,
         dominant="memory" if device_s >= host_s else "host",
         host_s=host_s,
     )
 
 
-def _single_device(n_shards: int, out_layout: str, dense_layout: str) -> None:
-    if n_shards > 1 or "row_sharded" in (out_layout, dense_layout):
-        raise NotImplementedError(
-            "sharded plans under the CUDA kernel model: ROADMAP item A9 "
-            "(multi-GPU sharding), not ported yet")
+def _sharded_dense_rows(stats: GraphStats, n_shards: int,
+                        dense_layout: str) -> int:
+    """Height of the dense operand a shard aggregates: a row-sharded one
+    is gathered at the height padded to the mesh."""
+    if n_shards > 1 and dense_layout == "row_sharded":
+        return _round_up(stats.n_dense_rows, n_shards)
+    return stats.n_dense_rows
+
+
+def _collectives(n_shards: int, dense_layout: str) -> int:
+    """Collective launches of one sharded dispatch: the epilogue's, and
+    the all-gather of a row-sharded dense operand."""
+    if n_shards <= 1:
+        return 0
+    return 1 + (dense_layout == "row_sharded")
 
 
 def spmm_cost(
@@ -709,15 +757,23 @@ def spmm_cost(
     partials (``dtype_bytes``).
 
     Under the CUDA kernel model it prices the port's aggregation and fold
-    (module docstring), on one card.
+    (module docstring), and on a data mesh one rank's share and the
+    collectives.
     """
     device = model_or_default(device)
     f = max(feature_dim, 1)
     if device.cuda is not None:
-        _single_device(n_shards, out_layout, dense_layout)
-        work = cuda_spmm_work(stats, f, impl=impl, block_rows=block_rows,
-                              block_k=block_k, precision=precision,
-                              dtype_bytes=dtype_bytes, idx_bytes=idx_bytes)
+        _, act_bytes = _storage_bytes(precision, dtype_bytes)
+        work = cuda_spmm_work(
+            stats, f, impl=impl, block_rows=block_rows, block_k=block_k,
+            precision=precision, dtype_bytes=dtype_bytes,
+            idx_bytes=idx_bytes, n_shards=n_shards,
+            dense_rows=_sharded_dense_rows(stats, n_shards, dense_layout))
+        work = _sharded_work(
+            work, n_shards, shard_imbalance,
+            _epilogue_bytes(stats, f, f, n_shards, out_layout, dense_layout,
+                            dtype_bytes, act_bytes),
+            _collectives(n_shards, dense_layout))
         return _cuda_cost(work, 2.0 * stats.nnz * f, precision, device)
     r_pad = _round_up(stats.padded_rows, block_rows)
     k_pad = _round_up(stats.n_dense_rows, block_k)
@@ -796,17 +852,18 @@ def combination_seconds(
     across ``n_shards`` row shards.  Under the CUDA kernel model, what
     ``exec.quant.affine`` runs: bf16/int8 operands rounded and widened
     back to f32 (two passes over ``X``), a full-f32 matmul at the fitted
-    rate, the bias added in a second pass; the larger of that device time
-    and its launches' host time.
+    rate, the bias added in a second pass, on one rank's ``k_rows /
+    n_shards`` rows; the larger of that device time and its launches'
+    host time.
     """
     device = model_or_default(device)
     act_b = _PRECISION_ACT_BYTES.get(precision, 4)
     val_b = _PRECISION_BYTES.get(precision, 4)
     flops = 2.0 * k_rows * f_in * f_out
     if device.cuda is not None:
-        _single_device(n_shards, "replicated", "replicated")
+        rows = _ceil_div(k_rows, max(n_shards, 1))
         return max(cuda_seconds(
-            cuda_combination_work(k_rows, f_in, f_out, precision), precision,
+            cuda_combination_work(rows, f_in, f_out, precision), precision,
             device))
     dram = (
         float(k_rows) * f_in * act_b
@@ -881,17 +938,26 @@ def fused_layer_cost(
     written or read back, the ELL table streams once (VMEM-resident), and
     ``X`` streams once per f-tile over the *occupied* k-tiles with the
     combination FLOPs recomputed per f-tile.  Under the CUDA kernel model:
-    the port's fused kernel (module docstring), on one card.
+    the port's fused kernel (module docstring), and on a data mesh one
+    rank's share and the collectives (a row-sharded ``X`` gathered at
+    ``F_in`` width).
     """
     device = model_or_default(device)
     f = max(f_out, 1)
     if device.cuda is not None:
-        _single_device(n_shards, out_layout, dense_layout)
-        work = cuda_fused_work(stats, f_in, f, impl=impl,
-                               block_rows=block_rows, block_k=block_k,
-                               block_f=block_f, precision=precision,
-                               dtype_bytes=dtype_bytes, idx_bytes=idx_bytes)
-        return _cuda_cost(work, work["tile_flops"], precision, device)
+        _, act_bytes = _storage_bytes(precision, dtype_bytes)
+        work = cuda_fused_work(
+            stats, f_in, f, impl=impl, block_rows=block_rows,
+            block_k=block_k, block_f=block_f, precision=precision,
+            dtype_bytes=dtype_bytes, idx_bytes=idx_bytes, n_shards=n_shards,
+            dense_rows=_sharded_dense_rows(stats, n_shards, dense_layout))
+        flops = work["tile_flops"]
+        work = _sharded_work(
+            work, n_shards, shard_imbalance,
+            _epilogue_bytes(stats, f, f_in, n_shards, out_layout,
+                            dense_layout, dtype_bytes, act_bytes),
+            _collectives(n_shards, dense_layout))
+        return _cuda_cost(work, flops, precision, device)
     r_pad = _round_up(stats.padded_rows, block_rows)
     k_pad = _round_up(stats.n_dense_rows, block_k)
     f_pad = _round_up(f, block_f)
@@ -1082,6 +1148,17 @@ def balanced_split_points(
     bounds = greedy(hi)
     bounds[-1] = n
     return np.maximum.accumulate(bounds)
+
+
+def width_imbalance(stats: GraphStats, width: int) -> float:
+    """max/mean nonzeros per shard of the nnz-weighted ``width``-way split
+    the sharded executor uses (1.0 at width 1 or without per-row counts):
+    the factor a width's per-device terms are scaled by.  Memoized on
+    ``stats``."""
+    if width <= 1 or stats.row_nnz is None:
+        return 1.0
+    return stats._memo(("imbalance", width), lambda: split_imbalance(
+        stats.row_nnz, balanced_split_points(stats.row_nnz, width)))
 
 
 def split_imbalance(weights: Sequence[float], bounds: np.ndarray) -> float:

@@ -244,8 +244,8 @@ class MicroBatcher:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh=: sharding bucket chunks over cards is ROADMAP item A9 "
-                "(multi-GPU sharding), not ported yet")
+                "mesh=: sharding bucket chunks over ranks is ROADMAP item A9b "
+                "(the serving mesh), not ported yet")
         if feedback is not None:
             raise NotImplementedError(
                 "feedback=: measured plan latencies are ROADMAP item A11 "

@@ -6,6 +6,13 @@ anything on the card.  Imports only torch, so the card tests can use it.
 
 from torch.utils._python_dispatch import TorchDispatchMode
 
+#: The launches of each kernel wrapper's CUDA branch: an aggregation
+#: launches its kernel; a fused wrapper zero-fills its output, then
+#: launches (``tests/test_torch_cuda.py`` counts the real wrappers).
+WRAPPER_LAUNCHES = {"spmm_ell_dense_grid": 1, "spmm_ell_sparse_grid": 1,
+                    "spmm_ell_fused_dense_grid": 2,
+                    "spmm_ell_fused_sparse_grid": 2}
+
 #: ATen ops that launch nothing on the card.
 NO_LAUNCH = frozenset({"empty", "empty_strided", "scalar_tensor",
                        "_local_scalar_dense", "lift_fresh", "detach",

@@ -7,7 +7,8 @@ PyTorch for CUDA:
 
 (``--noconftest`` keeps ``tests/conftest.py``, which imports the JAX
 package, out; this file imports nothing else from ``tests`` but
-``tests/_torch_ops.py``, which imports only torch.)  Each
+``tests/_torch_ops.py`` and ``tests/_torch_dist.py``, which import only
+torch and numpy.)  Each
 kernel is held against its plain PyTorch version on the same card, and
 the forward pass on the card against the plain forward on the CPU.
 """
@@ -646,3 +647,20 @@ def test_cuda_plan_launches_are_the_ops_dispatch_runs(cuda_device, impl,
                             stats.n_dense_rows, f_in, f_out,
                             precision)["launches"])
             assert counted == want, (nodes, br, bk, bf, ops.names)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_launches_are_the_ops_dispatch_runs(cuda_device):
+    """Two gloo ranks on the card (``tests/test_torch_sharded.py`` runs the
+    same count on the CPU): the torch ops one sharded ``execute_layer``
+    runs on each rank, each wrapper taken as its kernel launches and each
+    collective as one launch, are the H100 model's launches for it at
+    every impl, precision, fusion and layout pair."""
+    from _torch_dist import run_ranks
+    from _torch_ops import WRAPPER_LAUNCHES
+
+    ranks = run_ranks("_torch_dist", "sharded_launches", 2,
+                      args=(WRAPPER_LAUNCHES, "cuda"))
+    for rank in ranks:
+        for case, (names, want) in rank.items():
+            assert len(names) == want, (case, names)

@@ -202,13 +202,26 @@ def test_graph_places_operands_once_per_device():
 
 
 def test_forward_rejects_auto_plan():
-    """``plan="auto"`` plans one card: a data mesh is ROADMAP A9."""
+    """``plan="auto"`` on a 2-wide abstract mesh plans both widths; this
+    host-bound graph stays at width 1 under the H100 model (a collective
+    adds launches and saves little), so the forward equals the unplaced
+    one.  A plan placed on an abstract mesh is rejected: it only plans;
+    a forward runs on a ``DeviceMesh`` (``tests/test_torch_sharded.py``)."""
+    from repro_torch.exec.pipeline import plan_pipeline
+
     feats, params = _inputs("fused_case")
     _, tgraph = _graphs("fused_case")
     cfg = tgcn.GCNConfig(**_dims("fused_case"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tgcn.gcn_forward(params_from_numpy(params, "cpu"), tgraph, feats, cfg,
-                         plan="auto", device="cpu", mesh=object())
+    tparams = params_from_numpy(params, "cpu")
+    mesh = {"data": 2}
+    assert plan_pipeline(cfg, tgraph.pre.ell, mesh=mesh).n_shards == 1
+    got = tgcn.gcn_forward(tparams, tgraph, feats, cfg, plan="auto",
+                           device="cpu", mesh=mesh)
+    want = tgcn.gcn_forward(tparams, tgraph, feats, cfg, plan="auto",
+                            device="cpu")
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="abstract mesh"):
+        tgcn.gcn_forward(tparams, tgraph, feats, cfg, device="cpu", mesh=mesh)
 
 
 @pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])

@@ -29,6 +29,7 @@ import warnings
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.exec import pipeline as jpipe
 from repro.graphs.datasets import DatasetSpec, gcn_normalize, synthesize_adjacency
@@ -261,17 +262,32 @@ def test_h100_layer_seconds_prices_the_fused_edge_with_its_kernel():
                                24, 32) == pytest.approx(fused + wb, rel=1e-12)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
+@pytest.mark.parametrize("kw", [{"mesh": {"data": 2}},
                                 {"out_layout": "row_sharded"}])
 def test_plan_pipeline_one_card_only(kw):
+    """A mesh bounds the widths to {1, its width} (item A9); without one
+    and without a process group only width 1 can be placed, where the
+    layouts coincide and a row-sharded output is replicated.  The static
+    pipeline on a 2-wide mesh chains reduce-scatters between layers."""
     _, tcfg = _dims("fused_case")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.plan_pipeline(tcfg, _case("fused_case")[1].pre.ell, **kw)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.static_pipeline(tcfg, mesh=object())
+    pp = tpipe.plan_pipeline(tcfg, _case("fused_case")[1].pre.ell, **kw)
+    if "mesh" in kw:
+        assert pp.n_shards in (1, 2)
+        assert all((lp.spmm.mesh is kw["mesh"]) == (pp.n_shards == 2)
+                   for lp in pp.layers)
+    else:
+        assert pp.n_shards == 1
+        assert [lp.out_layout for lp in pp.layers] == ["replicated"] * 2
+    static = tpipe.static_pipeline(tcfg, mesh={"data": 2})
+    assert [(lp.in_layout, lp.out_layout) for lp in static.layers] == [
+        ("replicated", "row_sharded"), ("row_sharded", "replicated")]
+    assert static.n_shards == 2 and static.n_collective_rounds == 1
 
 
 def test_pipeline_forward_refuses_row_sharded_boundaries():
+    """A row-sharded boundary of a plan on no mesh runs replicated (the
+    layouts coincide on one device); a plan placed on an abstract mesh
+    only plans, and a layer count that does not match is refused."""
     _, tg, feats, params = _case("fused_case")
     _, tcfg = _dims("fused_case")
     pp = tpipe.static_pipeline(tcfg)
@@ -279,9 +295,14 @@ def test_pipeline_forward_refuses_row_sharded_boundaries():
         pp, layers=(dataclasses.replace(pp.layers[0],
                                         out_layout="row_sharded"),
                     pp.layers[1]))
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpipe.pipeline_forward(params_from_numpy(params, "cpu"), tg, feats,
-                               sharded, device="cpu")
+    tparams = params_from_numpy(params, "cpu")
+    got = tpipe.pipeline_forward(tparams, tg, feats, sharded, device="cpu")
+    want = tpipe.pipeline_forward(tparams, tg, feats, pp, device="cpu")
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="abstract mesh"):
+        tpipe.pipeline_forward(
+            tparams, tg, feats, tpipe.static_pipeline(tcfg, mesh={"data": 2}),
+            device="cpu")
     with pytest.raises(ValueError, match="layers"):
         tpipe.pipeline_forward(params_from_numpy(params, "cpu"), tg, feats,
                                tpipe.static_pipeline(tcfg, n_layers=3),

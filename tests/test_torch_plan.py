@@ -37,6 +37,7 @@ from repro.models.gcn import GCNConfig as JConfig
 from repro.plan import autoplan as jauto
 from repro.plan import cost as jcost
 
+from _torch_ops import WRAPPER_LAUNCHES
 from repro_torch.core.preprocessing import preprocess as t_preprocess
 from repro_torch.core.sparse_formats import random_power_law_csr as t_power_law
 from repro_torch.exec.plan import IMPL_NAMES, SpmmPlan, plan_for_config
@@ -437,12 +438,25 @@ def test_candidate_widths_are_divisors():
 
 @pytest.mark.parametrize("kw,item", [({"n_devices": 4}, "A9"),
                                      ({"widths": (1, 2)}, "A9"),
-                                     ({"mesh": object()}, "A9"),
+                                     ({"mesh": {"data": 2}}, "A9"),
                                      ({"feedback": object()}, "A11")])
 def test_choose_plan_one_card_only(kw, item):
+    """Widths above 1 (item A9) are priced; without a process group or a
+    mesh only width 1 can be placed, so the plan stays on one card; on a
+    2-wide mesh a width-2 plan is placed on it.  ``feedback=`` is still
+    item A11's."""
     _, tell = _ells("small")
-    with pytest.raises(NotImplementedError, match=item):
-        tauto.choose_plan(tell, 16, _cfgs()[1], **kw)
+    if item == "A11":
+        with pytest.raises(NotImplementedError, match=item):
+            tauto.choose_plan(tell, 16, _cfgs()[1], **kw)
+        return
+    choice = tauto.choose_plan(tell, 16, _cfgs()[1], **kw)
+    if "mesh" in kw:
+        assert choice.plan.n_shards in (1, 2)
+        assert (choice.plan.mesh is kw["mesh"]) == (choice.plan.n_shards == 2)
+        assert choice.static_plan.mesh is kw["mesh"]
+    else:
+        assert choice.plan.n_shards == 1 and choice.plan.mesh is None
 
 
 # ---------------------------------------------------------------------------
@@ -587,14 +601,6 @@ def test_h100_prices_the_reddit_fused_layer_above_the_unfused_one():
             fused = tcost.fused_layer_cost(reddit, f_in, f_out, impl="cuda",
                                            precision=precision).seconds
             assert fused > unfused
-
-
-#: The launches of each kernel wrapper's CUDA branch: an aggregation
-#: launches its kernel; a fused wrapper zero-fills its output, then
-#: launches (``tests/test_torch_cuda.py`` counts the real wrappers).
-WRAPPER_LAUNCHES = {"spmm_ell_dense_grid": 1, "spmm_ell_sparse_grid": 1,
-                    "spmm_ell_fused_dense_grid": 2,
-                    "spmm_ell_fused_sparse_grid": 2}
 
 
 def _layer_case(nodes, f_in, f_out):

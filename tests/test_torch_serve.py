@@ -676,7 +676,8 @@ def toy_dataset(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [(["--runtime-async"], "A10"),
-                                        (["--fleet-config", "f.json"], "A12")])
+                                        (["--fleet-config", "f.json"], "A12"),
+                                        (["--mesh", "2"], "A9b")])
 def test_cli_unported_scenarios_raise(toy_dataset, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         serve_gcn.main(["--dataset", "toy", "--reduced", *flags], device="cpu")

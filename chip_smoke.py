@@ -115,10 +115,33 @@ Phases, in order; any failure exits non-zero:
    kernels and agree.  Forward times are CUDA-event medians per rank; with
    both ranks on one card they are per-shard times, not multi-GPU times.
 
+8. The async runtime: ``ServeEngine.runtime()`` (the port's queue,
+   deadline-aware scheduler and worker thread, which replays the rungs'
+   CUDA graphs) driven open-loop by ``runtime.run_open_loop`` at the
+   serving CLI's defaults (deadline 200 ms), each run with a ``Tracer``
+   and the engine's ``PlanFeedback`` store.  PubMed: ``cuda`` f32 and
+   fused int8, each at 150 req/s (capacity 256) and at 1,500 req/s
+   (capacity 32, which must shed); Reddit: ``cuda`` f32 at 10 req/s.  Every
+   completed answer is held against an eager forward over the request's
+   own subgraph; submitted = completed + the rejections, sheds and
+   cancels, none failed, no future pending, no capture in the window;
+   every trace complete, each served one with its admission, prepare,
+   queue_wait and execute spans, one execute_layer per layer, the rung's
+   plan key and the ledger events ``record_batch_dram`` gives its batch;
+   one feedback entry per (rung, plan) served, saved under
+   ``build/chip_smoke/`` and loaded back, and (f32) an autoplanned engine
+   over the loaded store pins each measured rung's plan on every layer
+   at warmup.  An eager forward under an active span opens one
+   ``execute_layer`` span per layer with ledger events, and a capture
+   under the span opens none.  Prints per engine and load the offered
+   rate, completed, shed rate, SLO attainment, goodput, e2e / wait / exec
+   p50 and p99, the batches' close reasons and the median ``admission``,
+   ``prepare``, ``queue_wait`` and ``execute`` spans.
+
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
-one ``{"serving": ...}`` line, one ``{"planning": ...}`` line and one
-``{"sharding": ...}`` line, then as the last line ``{"ok": true, "device":
-{...}}``.  Without CUDA, or without the
+one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
+``{"sharding": ...}`` line and one ``{"async": ...}`` line, then as the
+last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -254,6 +277,22 @@ PLAN_SLOWER = 1.10
 # ms of mostly host time, so it takes hundreds of rounds to rise above
 # the host's noise; Reddit's take 8-16 ms of device time.
 PLAN_ROUNDS = {"pubmed": 300, "reddit": 20}
+# Phase 8: the async runtime at the serving CLI's defaults (deadline
+# 200 ms, queue capacity 256) with the requests drawn as phase 5 draws
+# them, after every request phases 5 and 6 served.  PubMed: under
+# capacity (150 req/s, below the 332-458 req/s of phase 5's batches) and
+# overloaded (1,500 req/s into 32 places); Reddit under capacity (10
+# req/s, below its ~22 req/s).  The feedback check builds an autoplanned
+# engine on the CLI's ladder (growth 4, autoplan's own is "auto").
+ASYNC_ENGINES = {"pubmed": (("cuda", "f32", False), ("cuda", "int8", True)),
+                 "reddit": (("cuda", "f32", False),)}
+ASYNC_LOADS = {
+    "pubmed": (dict(name="under", requests=400, qps=150.0, capacity=256),
+               dict(name="overload", requests=400, qps=1500.0, capacity=32)),
+    "reddit": (dict(name="under", requests=150, qps=10.0, capacity=256),),
+}
+ASYNC_DEADLINE_S = 0.2
+SERVE_GROWTH = 4
 # Kernel names in the profile of a replayed batch (csrc/flexvector_spmm.cu),
 # and names of library sparse kernels that must not appear there.
 AGGREGATION_KERNEL = "ell_aggregate_kernel"
@@ -1858,6 +1897,389 @@ def shard_forwards(torch, rank: int, world: int, directory: str,
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 8: the async runtime ------------------------------------------------
+
+
+def batch_ledger(engine, bucket, padded: int) -> dict:
+    """``kind -> (bytes, n)`` of the ledger records ``record_batch_dram``
+    makes for one batch, taken as ``RuntimeLoop`` takes a batch's."""
+    from repro_torch.dist.collectives import LEDGER
+
+    counts, nbytes = dict(LEDGER.counts), dict(LEDGER.bytes)
+    engine.batcher.record_batch_dram(bucket, padded,
+                                     int(engine.features.shape[1]))
+    out = {}
+    for kind in set(LEDGER.counts) | set(counts):
+        n = LEDGER.counts.get(kind, 0) - counts.get(kind, 0)
+        b = LEDGER.bytes.get(kind, 0.0) - nbytes.get(kind, 0.0)
+        if n > 0 or b != 0.0:
+            out[kind] = (b, n)
+    return out
+
+
+def served_plan_key(engine, bucket) -> str:
+    """``plan_key_from_plan`` of the rung's plan (``plan_for_bucket``)
+    at the rung's storage precision, the key a served batch files under."""
+    from repro_torch.obs import plan_key_from_plan
+
+    fdim = int(engine.features.shape[1])
+    plan = engine.batcher.plan_for_bucket(bucket, fdim)
+    prec = engine.batcher.precision_for_bucket(bucket)
+    return plan_key_from_plan(dataclasses.replace(plan, precision=prec))
+
+
+def median_ms(spans) -> float:
+    return 1e3 * statistics.median(s.end - s.start for s in spans) \
+        if spans else float("nan")
+
+
+def check_traces(engine, key: str, traces, admitted, submitted: int) -> dict:
+    """Every trace complete, every served one with its spans, plan key
+    and the ledger events ``record_batch_dram`` gives its batch; returns
+    the span medians (ms) of the served requests."""
+    from repro_torch.obs import bucket_key
+
+    n_layers = engine.cfg.n_layers
+    check(len(traces) == submitted, f"{key}: {len(traces)} traces for "
+          f"{submitted} submitted requests")
+    bad = [t.status for t in traces if not t.done or not (
+        t.status == "ok" or t.status.startswith(("rejected", "shed")))]
+    check(not bad, f"{key}: traces ended as {sorted(set(bad))}")
+    served = [t for t in traces if t.status == "ok"]
+    check(len(served) == sum(1 for r in admitted if r.future.done()
+                             and not r.future.cancelled()
+                             and r.future.exception() is None),
+          f"{key}: {len(served)} ok traces for the completed requests")
+    fdim = int(engine.features.shape[1])
+    rungs = {bucket_key(b, fdim): b for b in engine.batcher.ladder.entries}
+    expected = {}
+    for t in served:
+        names = [s.name for s in t.spans]
+        for name in ("admission", "prepare", "queue_wait", "execute"):
+            check(names.count(name) == 1, f"{key}: trace {t.trace_id} has "
+                  f"{names.count(name)} {name} spans")
+        [ex] = t.find("execute")
+        layers = t.find("execute_layer")
+        check(len(layers) == n_layers and all(
+            s.parent_id == ex.span_id for s in layers),
+            f"{key}: trace {t.trace_id}: {len(layers)} execute_layer spans "
+            f"under execute, want {n_layers}")
+        bucket = rungs[ex.attributes["bucket_key"]]
+        check(ex.attributes["plan_key"] == served_plan_key(engine, bucket),
+              f"{key}: trace {t.trace_id} plan_key "
+              f"{ex.attributes['plan_key']} is not its rung's")
+        padded = ex.attributes["padded_batch"]
+        if (bucket, padded) not in expected:
+            expected[bucket, padded] = batch_ledger(engine, bucket, padded)
+        want = expected[bucket, padded]
+        got = {e.attributes["kind"]: (e.attributes["bytes"], e.attributes["n"])
+               for e in ex.events if e.name == "ledger"}
+        check(set(got) == set(want) and all(
+            got[k][1] == want[k][1]
+            and abs(got[k][0] - want[k][0]) <= 1e-9 * max(abs(want[k][0]), 1)
+            for k in want),
+            f"{key}: trace {t.trace_id} ledger events {got} are not "
+            f"record_batch_dram's {want}")
+    return {name: median_ms([s for t in served for s in t.find(name)])
+            for name in ("admission", "prepare", "queue_wait", "execute")}
+
+
+def export_checks(key: str, traces, metrics, stem: str) -> dict:
+    """The traces JSON, metrics JSON and Prometheus text of a run, written
+    to ``<stem>.traces.json`` / ``.metrics.json`` / ``.prom`` and parsed
+    back."""
+    from repro_torch.obs import (write_metrics_json, write_prometheus,
+                                 write_traces_json)
+
+    paths = {k: f"{stem}.{k}" for k in ("traces.json", "metrics.json",
+                                        "prom")}
+    n = write_traces_json(paths["traces.json"], traces)
+    snap = write_metrics_json(paths["metrics.json"], metrics)
+    write_prometheus(paths["prom"], snap)
+    with open(paths["traces.json"]) as f:
+        back = json.load(f)["traces"]
+    check(n == len(traces) == len(back) and [t["trace_id"] for t in back]
+          == [t.trace_id for t in traces], f"{key}: traces JSON")
+    with open(paths["metrics.json"]) as f:
+        check(json.load(f) == json.loads(json.dumps(snap)),
+              f"{key}: metrics JSON")
+    series = {}
+    with open(paths["prom"]) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                series[name] = float(value)
+    counters = snap["counters"]
+    check(all(series[f"repro_{k}"] == v for k, v in counters.items())
+          and series["repro_e2e_s_ms_count"]
+          == snap["latency_ms"]["e2e_s"]["count"],
+          f"{key}: the Prometheus text does not read back the snapshot")
+    return {k: os.path.relpath(v, ROOT) for k, v in paths.items()}
+
+
+def async_load(torch, np, engine, key: str, requests, load: dict, fb,
+               stem: str) -> dict:
+    """One open-loop run (``runtime.run_open_loop``) through a traced
+    runtime; every check of the run, its exports (under ``stem``), and
+    what it prints."""
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import run_open_loop
+
+    tracer = Tracer()
+    built = engine.compile_count
+    admitted, batches = [], []
+    rt = engine.runtime(capacity=load["capacity"], tracer=tracer,
+                        feedback=fb)
+    submit, execute = rt.submit, rt.loop.execute
+
+    def recording_submit(*a, **kw):
+        req = submit(*a, **kw)
+        admitted.append(req)
+        return req
+
+    def recording_execute(batch):
+        batches.append((batch.reason, [r.deadline for r in batch.requests]))
+        return execute(batch)
+
+    rt.submit, rt.loop.execute = recording_submit, recording_execute
+    with rt:
+        wall = run_open_loop(rt, requests, qps=load["qps"],
+                             deadline_s=ASYNC_DEADLINE_S,
+                             rng=np.random.default_rng(1))
+    pending = [r for r in admitted if not r.future.done()]
+    check(not pending, f"{key}: {len(pending)} futures pending after shutdown")
+    check(engine.compile_count == built, f"{key}: "
+          f"{engine.compile_count - built} captures in the timed window")
+    snap = rt.metrics.snapshot()
+    c = snap["counters"]
+    accounted = (c["completed"] + c["rejected_queue_full"]
+                 + c["rejected_infeasible"] + c["shed_expired"]
+                 + c["cancelled"])
+    check(c["submitted"] == len(requests) == accounted,
+          f"{key}: {c['submitted']} submitted, {accounted} accounted for")
+    check(c["failed"] == 0, f"{key}: {c['failed']} requests failed")
+    shed = (c["rejected_queue_full"] + c["rejected_infeasible"]
+            + c["shed_expired"])
+    if load["name"] == "overload":
+        check(shed >= 1, f"{key}: the overload shed nothing")
+    traces = tracer.drain()
+    spans = check_traces(engine, key, traces, admitted, c["submitted"])
+    exports = export_checks(key, traces, rt.metrics, stem)
+
+    done = [r for r in admitted
+            if not r.future.cancelled() and r.future.exception() is None]
+    subs = [engine.sampler.extract(r.seeds) for r in done]
+    got = [r.future.result() for r in done]
+    prec = engine.precision
+    agreement_ = hold(torch, np, key, f"{len(done)} async answers vs eager "
+                      "forwards over their own subgraphs", got,
+                      eager_answers(torch, engine, subs), prec,
+                      SERVE_FLIP_SHARE[prec], phase=8)
+    max_wait = sum(1 for reason, deadlines in batches if reason == "deadline"
+                   and all(d is None for d in deadlines))
+    closes = {"full": c["batches_full"],
+              "deadline": c["batches_deadline"] - max_wait,
+              "max_wait": max_wait, "flush": c["batches_flush"]}
+    lat = {h: snap["latency_ms"][f"{h}_s"] for h in ("e2e", "wait", "exec")}
+    record = {
+        "offered_qps": load["qps"], "requests": len(requests),
+        "capacity": load["capacity"], "deadline_ms": 1e3 * ASYNC_DEADLINE_S,
+        "wall_s": wall, "completed": c["completed"],
+        "rejected_queue_full": c["rejected_queue_full"],
+        "rejected_infeasible": c["rejected_infeasible"],
+        "shed_expired": c["shed_expired"], "cancelled": c["cancelled"],
+        "shed_rate": snap["derived"]["shed_rate"],
+        "slo_attainment": snap["derived"]["slo_attainment"],
+        "goodput_rps": c["slo_met"] / max(wall, 1e-9),
+        "latency_ms": lat, "closes": closes, "span_median_ms": spans,
+        "post_warmup_captures": engine.compile_count - built,
+        "vs_eager": agreement_, "exports": exports,
+    }
+    print(f"phase 8: {key} {load['name']}: offered {load['qps']:.0f} req/s x "
+          f"{len(requests)} (capacity {load['capacity']}, deadline "
+          f"{1e3 * ASYNC_DEADLINE_S:.0f} ms) in {wall:.2f} s; completed "
+          f"{c['completed']}, shed rate {record['shed_rate']:.3f} (queue "
+          f"full {c['rejected_queue_full']}, infeasible "
+          f"{c['rejected_infeasible']}, expired {c['shed_expired']}); SLO "
+          f"attainment {record['slo_attainment']:.3f}, goodput "
+          f"{record['goodput_rps']:.1f} req/s")
+    print(f"phase 8: {key} {load['name']}: p50/p99 ms e2e "
+          f"{lat['e2e']['p50']:.3f}/{lat['e2e']['p99']:.3f}, wait "
+          f"{lat['wait']['p50']:.3f}/{lat['wait']['p99']:.3f}, exec "
+          f"{lat['exec']['p50']:.3f}/{lat['exec']['p99']:.3f}; batches "
+          f"closed {closes}; span medians ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()))
+    return record
+
+
+def feedback_checks(torch, np, engine, key: str, fb, path: str,
+                    requests) -> dict:
+    """The store holds one entry per (bucket, plan) served, round-trips
+    through ``path``, and an autoplanned engine built with the loaded
+    store (the serving CLI's ladder) serves each measured rung with one
+    feedback-informed plan on every layer, captured at warmup."""
+    from repro_torch.obs import PlanFeedback, bucket_key
+    from repro_torch.plan.autoplan import choose_plan
+    from repro_torch.serve import ServeEngine
+
+    fdim = int(engine.features.shape[1])
+    served = {}
+    for b in engine.batcher.ladder.entries:
+        bkey = bucket_key(b, fdim)
+        if fb.has_bucket(bkey):
+            served[bkey] = b
+            check(list(fb.entries()[bkey]) == [served_plan_key(engine, b)],
+                  f"{key}: feedback entries {fb.entries()[bkey]} for {bkey}")
+    check(served and len(fb) == len(served),
+          f"{key}: {len(fb)} feedback entries for the rungs {list(served)}")
+    fb.save(path)
+    back = PlanFeedback.load(path)
+    check(back.entries() == fb.entries() and os.path.exists(path),
+          f"{key}: the feedback store does not round-trip through {path}")
+    out = {"entries": fb.entries(), "path": os.path.relpath(path, ROOT)}
+    if engine.precision != "f32" or engine.batcher.fused:
+        # plan_for_bucket's candidates are f32 and unfused: no key of this
+        # store can match one
+        print(f"phase 8: {key} feedback {fb.entries()} saved and loaded "
+              f"back ({out['path']})")
+        return out
+    pinned_engine = ServeEngine(
+        engine.adj_norm, engine.features, engine.cfg, params=engine.params,
+        registry=engine.registry, device=engine.device, autoplan=True,
+        ladder_growth=SERVE_GROWTH, feedback=back, **SERVE)
+    batcher = pinned_engine.batcher
+    check(batcher.ladder == engine.batcher.ladder,
+          f"{key}: the pinned engine's ladder differs")
+    pins = {}
+    for bkey, b in served.items():
+        choice = choose_plan(batcher._rung_stats(b), fdim, pinned_engine.cfg,
+                             impls=("reference", "cuda"), schedulable=False,
+                             feedback=back, feedback_key=bkey)
+        plan = batcher.plan_for_bucket(b, fdim)
+        layers = batcher.layer_plans_for_bucket(b, fdim)
+        check(choice.measured_used >= 1
+              and plan == choice.plan.resolve(schedulable=False)
+              and layers == [plan] * pinned_engine.cfg.n_layers,
+              f"{key}: rung {bkey} is not pinned to its feedback-informed "
+              f"plan")
+        pins[bkey] = served_plan_key(pinned_engine, b)
+    built = pinned_engine.warmup()
+    check(all(any(k[0] == b for k in batcher._executables)
+              for b in served.values()), f"{key}: a pinned rung was not "
+          "captured at warmup")
+    got = pinned_engine.query_batch(requests)
+    check(pinned_engine.compile_count == built,
+          f"{key}: the pinned engine captured after warmup")
+    subs = [pinned_engine.sampler.extract(s) for s in requests]
+    hold(torch, np, key, f"{len(requests)} answers of the pinned engine vs "
+         "eager forwards", got, eager_answers(torch, engine, subs), "f32",
+         SERVE_FLIP_SHARE["f32"], phase=8)
+    print(f"phase 8: {key} feedback {fb.entries()} saved and loaded back "
+          f"({out['path']}); an autoplanned engine over it pins {pins} on "
+          f"every layer ({built} graphs captured at warmup, none after)")
+    batcher.clear_executables()
+    out["pinned_plans"] = pins
+    return out
+
+
+def span_checks(torch, np, engine, requests, dev) -> dict:
+    """An eager forward on the card under an active span opens one
+    ``execute_layer`` span per layer, each with ledger events; a capture
+    of a rung's forward inside the span opens none and captures without
+    error, and its replay answers as the eager pass did."""
+    from repro_torch.models.gcn import gcn_forward
+    from repro_torch.obs import Tracer, use_span
+    from repro_torch.serve.batcher import _CapturedForward
+
+    sub = engine.sampler.extract(requests[0])
+    tracer = Tracer()
+    trace = tracer.trace("eager")
+    with use_span(trace.root):
+        gcn_forward(engine.params, sub.graph, engine.features[sub.nodes],
+                    engine.cfg, precision=engine.precision, device=dev).cpu()
+    layers = trace.find("execute_layer")
+    check(len(layers) == engine.cfg.n_layers and all(
+        any(e.name == "ledger" for e in s.events) for s in layers),
+        f"an eager forward under a span gave {len(layers)} execute_layer "
+        "spans (or one without ledger events)")
+    # a rung's forward (an unfused engine's: no slot lists to stack)
+    padded = engine._prepare(requests[0])
+    fdim = padded.feats.shape[1]
+    batcher = engine.batcher
+    fwd = batcher._make_forward(padded.bucket, fdim)
+    specs = batcher.input_specs(padded.bucket, 1, fdim)
+    inputs = {name: torch.as_tensor(getattr(padded, name))[None]
+              for name in specs}
+    exe = _CapturedForward(fwd, engine.params, specs, dev,
+                           torch.cuda.graph_pool_handle())
+    served = batcher.run(engine.params, [padded])[0]
+    before = len(trace.spans)
+    with use_span(trace.root):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fwd(exe.params, exe.inputs)
+    check(len(trace.spans) == before,
+          "a capture under an active span opened a span")
+    replayed = exe(engine.params, inputs)[0, : padded.n_seeds]
+    reading = agreement(torch, torch.as_tensor(replayed),
+                        torch.as_tensor(served))
+    check(agrees(reading, FORWARD_REL_TOL["f32"], FORWARD_FLIP_SHARE),
+          f"the graph captured under a span disagrees: {describe(reading)}")
+    print(f"phase 8: eager forward under a span: {len(layers)} execute_layer "
+          f"spans with ledger events; a capture under the span opened none; "
+          f"its replay vs the rung's {describe(reading)}")
+    return {"eager_layer_spans": len(layers), "capture_spans": 0,
+            "capture_vs_replay": reading}
+
+
+def phase_async(torch, np, registry, data, cfg, params, dev,
+                dataset: str) -> dict:
+    """Phase 8: each of the dataset's engines warmed, then driven
+    open-loop through a traced ``ServeRuntime`` with a ``PlanFeedback``
+    store at each load; every check of ``async_load`` and
+    ``feedback_checks``, and the span checks."""
+    from repro_torch.obs import PlanFeedback
+    from repro_torch.serve import ServeEngine
+
+    engines, loads = ASYNC_ENGINES[dataset], ASYNC_LOADS[dataset]
+    served_before = sum(SERVE_LOAD[dataset][k] for k in ("queries", "batch"))
+    served_before = served_before * len(SERVE_ENGINES[dataset]) + sum(
+        PLAN_LOAD.values())
+    sizes = [served_before] + [ld["requests"] for ld in loads] * len(engines)
+    draws = serve_draws(np, data.adj_norm.rows, sizes)[1:]
+    directory = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(directory, exist_ok=True)
+    out, spans = {}, None
+    for e, (impl, precision, fused) in enumerate(engines):
+        key = f"{impl}{'+fused' if fused else ''}@{precision}"
+        t0 = time.perf_counter()
+        engine = ServeEngine(
+            data.adj_norm, data.features,
+            dataclasses.replace(cfg, spmm_impl=impl), params=params,
+            registry=registry, device=dev, precision=precision, fused=fused,
+            **SERVE)
+        built = engine.warmup()
+        print(f"phase 8: {key} {built} CUDA graphs captured in "
+              f"{time.perf_counter() - t0:.1f} s")
+        fb = PlanFeedback()
+        record = {"captures": built, "loads": {}}
+        for i, load in enumerate(loads):
+            requests = draws[e * len(loads) + i]
+            stem = os.path.join(directory, f"{dataset}_{e}_{load['name']}")
+            record["loads"][load["name"]] = async_load(
+                torch, np, engine, key, requests, load, fb, stem)
+        path = os.path.join(directory, f"plan_feedback_{dataset}_{e}.json")
+        record["feedback"] = feedback_checks(
+            torch, np, engine, key, fb, path, draws[e * len(loads)][:16])
+        if spans is None:
+            spans = span_checks(torch, np, engine, draws[0], dev)
+        engine.batcher.clear_executables()
+        del engine
+        torch.cuda.empty_cache()
+        out[key] = record
+    return {"engines": out, "spans": spans}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -1887,7 +2309,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-7 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-8 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -1942,6 +2364,10 @@ def drive(torch, np, args, cache_dir: str) -> int:
     sharding = phase_sharding(torch, np, graph, cfg, params, feats, dev,
                               args.dataset, card)
     print(f"phase 7: {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    runtime = phase_async(torch, np, registry, data, cfg, params, dev,
+                          args.dataset)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -2008,6 +2434,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(json.dumps({"planning": dict(planning, dataset=args.dataset,
                                        card=card)}))
     print(json.dumps({"sharding": sharding}))
+    print(json.dumps({"async": dict(runtime, dataset=args.dataset, card=card,
+                                    settings=SERVE,
+                                    loads=ASYNC_LOADS[args.dataset])}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

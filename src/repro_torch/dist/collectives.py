@@ -28,8 +28,10 @@ ledgers can be compared entry for entry.  The reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+import threading
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -45,10 +47,38 @@ class CollectiveLedger:
 
     counts: Dict[str, int] = dataclasses.field(default_factory=dict)
     bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: Observers called as ``listener(kind, nbytes, n)`` on every record.
+    #: ``repro_torch.obs`` registers one to adopt ledger records as span
+    #: events; listeners never affect the tallies and ``reset`` leaves
+    #: them installed.
+    listeners: List[Callable[[str, float, int], None]] = dataclasses.field(
+        default_factory=list)
+    _muted: threading.local = dataclasses.field(
+        default_factory=threading.local, repr=False, compare=False)
 
     def record(self, kind: str, nbytes: float, n: int = 1) -> None:
+        if getattr(self._muted, "depth", 0):
+            return
         self.counts[kind] = self.counts.get(kind, 0) + n
         self.bytes[kind] = self.bytes.get(kind, 0.0) + float(nbytes)
+        for listener in self.listeners:
+            listener(kind, float(nbytes), n)
+
+    @contextlib.contextmanager
+    def muted(self):
+        """Drop this thread's records inside the block.
+
+        A serving executable on the CPU is a closure over the eager
+        forward, whose dispatches record as they run; a CUDA graph replay
+        on the card records nothing.  The batcher runs its CPU closures
+        muted so that both devices ledger a served batch the same way:
+        once, host-side, through ``MicroBatcher.record_batch_dram``.
+        """
+        self._muted.depth = getattr(self._muted, "depth", 0) + 1
+        try:
+            yield
+        finally:
+            self._muted.depth -= 1
 
     def record_fused_writeback(self, saved_bytes: float) -> None:
         """Ledger a fused layer's activation writeback: zero bytes, recorded.

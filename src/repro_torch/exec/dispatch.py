@@ -144,18 +144,35 @@ def execute_layer(
     this rank's row slice, and the combination runs on it alone).
     ``layer`` holds ``"w"``/``"b"`` and, for int8 weights, ``"w_scale"``
     with ``w_block_rows`` granularity (``quant.quantize_params``).
+
+    When a ``repro_torch.obs`` span is active on this thread, the layer
+    runs under an ``execute_layer`` child span stamped with the resolved
+    plan's attributes, and the ledger records fired inside land on it as
+    events.  Not inside a CUDA graph capture: what is captured runs at
+    each replay, not now, so no host span is opened for it.  The span is
+    host time, not device time: it closes when the layer's launches are
+    enqueued, and no synchronize is added for it.
     """
     plan = plan.resolve(schedulable=operands.schedulable)
-    if (plan.fused and plan.effective_impl != "reference"
-            and not plan.feature_sharded):
-        return execute_fused(plan, operands, x, layer,
-                             w_block_rows=w_block_rows)
-    xw = quant.affine(x, layer, plan.precision, w_block_rows)
-    rows = x.shape[0]
-    if plan.sharded and plan.dense_layout == "row_sharded":
-        rows *= plan.n_shards
-    record_combination_dram(plan, rows, x.shape[1], int(xw.shape[1]))
-    return execute(plan, operands, xw)
+    span = None
+    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        from repro_torch.obs.trace import start_layer_span  # no cycle
+
+        span = start_layer_span(plan)
+    try:
+        if (plan.fused and plan.effective_impl != "reference"
+                and not plan.feature_sharded):
+            return execute_fused(plan, operands, x, layer,
+                                 w_block_rows=w_block_rows)
+        xw = quant.affine(x, layer, plan.precision, w_block_rows)
+        rows = x.shape[0]
+        if plan.sharded and plan.dense_layout == "row_sharded":
+            rows *= plan.n_shards
+        record_combination_dram(plan, rows, x.shape[1], int(xw.shape[1]))
+        return execute(plan, operands, xw)
+    finally:
+        if span is not None:
+            span.finish()
 
 
 def execute(

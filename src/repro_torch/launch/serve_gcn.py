@@ -1,5 +1,5 @@
-"""GCN serving launcher: full-graph, single-node and batched-query
-scenarios on the port's FlexVector SpMM kernels, on the card.
+"""GCN serving launcher: full-graph, single-node, batched-query and
+async-runtime scenarios on the port's FlexVector SpMM kernels, on the card.
 
 Usage:
   python -m repro_torch.launch.serve_gcn --dataset pubmed --impl cuda \
@@ -8,9 +8,15 @@ Usage:
       --reduced                          # smoke configuration (hidden 16)
   python -m repro_torch.launch.serve_gcn --dataset pubmed --impl cuda \
       --autoplan --precision auto        # cost-model plans and precisions
+  python -m repro_torch.launch.serve_gcn --dataset pubmed --impl cuda \
+      --runtime-async --deadline-ms 200 --qps 150 \
+      --trace-json build/traces.json --metrics-prom build/metrics.prom
 
 The port of ``repro.launch.serve_gcn`` (scenarios ``full``, ``node`` and
-``batch``).  The async runtime scenario and the fleet are not ported yet.
+``batch``, the batch open-loop through the async runtime with
+``--runtime-async``, traces, metrics and measured plan latencies with the
+``repro_torch.obs`` flags).  The serving mesh and the fleet are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 from repro_torch.serve import ServeEngine
 
 
-def build_engine(args, device=None) -> ServeEngine:
+def build_engine(args, device=None, feedback=None) -> ServeEngine:
     growth = None
     if args.ladder_growth:
         growth = ("auto" if args.ladder_growth == "auto"
@@ -41,8 +47,74 @@ def build_engine(args, device=None) -> ServeEngine:
         ladder_growth=growth,
         precision=args.precision,
         accuracy_budget=args.accuracy_budget,
+        feedback=feedback,
         device=device,
     )
+
+
+def make_tracer(args):
+    """One Tracer when any trace/metrics export is requested, else None —
+    tracing off keeps the serving hot path exactly as before."""
+    if not (args.trace_json or args.metrics_prom):
+        return None
+    from repro_torch.obs import Tracer
+
+    return Tracer()
+
+
+def export_observability(args, tracer, metrics) -> None:
+    """Write the requested trace/metrics artifacts after a run."""
+    from repro_torch.obs import (write_metrics_json, write_prometheus,
+                                 write_traces_json)
+
+    if tracer is not None and args.trace_json:
+        n = write_traces_json(args.trace_json, tracer.drain())
+        print(f"[obs] {n} traces written to {args.trace_json}")
+    if args.metrics_prom:
+        write_prometheus(args.metrics_prom, metrics)
+        print(f"[obs] prometheus metrics written to {args.metrics_prom}")
+    if args.metrics_json:
+        write_metrics_json(args.metrics_json, metrics)
+        print(f"[metrics] snapshot written to {args.metrics_json}")
+
+
+def run_async_scenario(engine: ServeEngine, requests, args) -> None:
+    """Open-loop Poisson load through the deadline-aware runtime
+    (``repro_torch.runtime.loadgen``), reporting the SLO picture from the
+    metrics registry."""
+    from repro_torch.runtime import run_open_loop
+
+    tracer = make_tracer(args)
+    with engine.runtime(capacity=args.queue_capacity, tracer=tracer) as rt:
+        wall = run_open_loop(
+            rt,
+            requests,
+            qps=args.qps,
+            deadline_s=args.deadline_ms / 1e3,
+            rng=np.random.default_rng(1),
+        )
+
+    snap = rt.metrics.snapshot()
+    c = snap["counters"]
+    e2e = snap["latency_ms"]["e2e_s"]
+    goodput = c["slo_met"] / max(wall, 1e-9)
+    shed = c["rejected_queue_full"] + c["rejected_infeasible"] \
+        + c["shed_expired"]
+    print(
+        f"async: offered {c['submitted']} @ {args.qps:.0f} qps, "
+        f"completed {c['completed']}, "
+        f"shed {shed} (rate {snap['derived']['shed_rate']:.3f}); "
+        f"e2e p50 {e2e['p50']:.2f} ms p99 {e2e['p99']:.2f} ms; "
+        f"SLO({args.deadline_ms:.0f}ms) attainment "
+        f"{snap['derived']['slo_attainment']:.3f}, "
+        f"goodput {goodput:.1f} req/s; batches "
+        f"full={c['batches_full']} deadline={c['batches_deadline']}"
+    )
+    if engine.feedback is not None and args.plan_feedback:
+        engine.feedback.save(args.plan_feedback)
+        print(f"[obs] {len(engine.feedback)} measured plan latencies "
+              f"saved to {args.plan_feedback}")
+    export_observability(args, tracer, rt.metrics)
 
 
 def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
@@ -89,7 +161,34 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
                     help="small hidden dim (smoke configuration)")
     ap.add_argument("--runtime-async", action="store_true",
                     help="drive the batched scenario through the async "
-                         "runtime (ROADMAP item A10, not ported yet)")
+                         "deadline-aware repro_torch.runtime worker loop "
+                         "(open-loop Poisson arrivals) instead of the "
+                         "synchronous query_batch facade")
+    ap.add_argument("--deadline-ms", type=float, default=200.0,
+                    help="per-request SLO for --runtime-async (absolute "
+                         "deadline = arrival + this)")
+    ap.add_argument("--qps", type=float, default=100.0,
+                    help="offered load for --runtime-async (Poisson "
+                         "arrival rate, requests/s)")
+    ap.add_argument("--queue-capacity", type=int, default=256,
+                    help="bounded queue size for --runtime-async "
+                         "(admission sheds beyond it)")
+    ap.add_argument("--metrics-json", default=None,
+                    help="write the runtime metrics snapshot to this path "
+                         "after --runtime-async")
+    ap.add_argument("--trace-json", default=None,
+                    help="turn on repro_torch.obs request tracing and write "
+                         "the drained traces (JSON) to this path after the "
+                         "async run")
+    ap.add_argument("--metrics-prom", default=None,
+                    help="write the metrics snapshot in Prometheus text "
+                         "exposition format to this path after the async "
+                         "run")
+    ap.add_argument("--plan-feedback", default=None,
+                    help="path of a repro_torch.obs PlanFeedback store: "
+                         "loaded before warmup (measured latencies steer "
+                         "--autoplan) and re-saved with this run's "
+                         "measurements after --runtime-async")
     ap.add_argument("--mesh", type=int, default=1,
                     help="width of the data mesh to shard batched query "
                          "chunks over (ROADMAP item A9b, not ported yet)")
@@ -106,12 +205,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
         raise NotImplementedError(
             "--fleet-config: the servable fleet is ROADMAP item A12, not "
             "ported yet")
-    if args.runtime_async:
-        raise NotImplementedError(
-            "--runtime-async: the async runtime is ROADMAP item A10, not "
-            "ported yet")
 
-    engine = build_engine(args, device=device)
+    feedback = None
+    if args.plan_feedback:
+        from repro_torch.obs import PlanFeedback
+
+        feedback = PlanFeedback.load(args.plan_feedback)
+        print(f"[obs] plan feedback loaded from {args.plan_feedback}: "
+              f"{len(feedback)} measured (bucket, plan) entries")
+    engine = build_engine(args, device=device, feedback=feedback)
     t0 = time.perf_counter()
     built = engine.warmup(max_nodes=args.warmup_max_nodes or None)
     reg = engine.registry.stats
@@ -163,9 +265,13 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
         print(engine.report("query", wall_s=time.perf_counter() - t0).line())
 
     if args.scenario in ("all", "batch"):
-        t0 = time.perf_counter()
-        engine.query_batch(requests)
-        print(engine.report("batch", wall_s=time.perf_counter() - t0).line())
+        if args.runtime_async:
+            run_async_scenario(engine, requests, args)
+        else:
+            t0 = time.perf_counter()
+            engine.query_batch(requests)
+            print(engine.report(
+                "batch", wall_s=time.perf_counter() - t0).line())
 
     print(f"[post-warmup compiles] {engine.compile_count - built} "
           f"(warmup built {built}); batcher calls {engine.batcher.calls}; "

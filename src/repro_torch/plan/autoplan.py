@@ -21,8 +21,9 @@ A width above 1 is priced against the achievable balance of the
 nnz-weighted split it would use, and placed on ``mesh`` (a
 ``DeviceMesh``, or an abstract mesh for planning only); without a mesh,
 the widths are those the initialized process group can place
-(:func:`placeable_widths`).  Measured-latency ``feedback`` is ROADMAP item
-A11.
+(:func:`placeable_widths`).  A ``feedback`` store
+(``repro_torch.obs.feedback.PlanFeedback``) prices a candidate it has
+measured by its measurement in place of the model's cost.
 """
 
 from __future__ import annotations
@@ -39,12 +40,6 @@ from repro_torch.plan import cost as cost_mod
 BLOCK_CANDIDATES = (16, 32, 64, 128)
 
 
-def _unported_feedback() -> NotImplementedError:
-    return NotImplementedError(
-        "feedback=: measured plan latencies are ROADMAP item A11 "
-        "(observability), not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class PlanChoice:
     """An autoplan decision with its receipts."""
@@ -54,6 +49,9 @@ class PlanChoice:
     static_plan: SpmmPlan
     static_cost: cost_mod.CostBreakdown
     n_candidates: int
+    #: How many candidates were priced by a measured-latency feedback
+    #: entry instead of the device model (0 = purely modeled decision).
+    measured_used: int = 0
 
     def describe(self) -> str:
         p = self.plan
@@ -123,6 +121,7 @@ def choose_plan(
     accuracy_budget: Optional[float] = None,
     f_in: Optional[int] = None,
     feedback=None,
+    feedback_key: Optional[str] = None,
 ) -> PlanChoice:
     """Pick the argmin-cost plan for one graph + device model.
 
@@ -150,9 +149,19 @@ def choose_plan(
     :func:`~repro_torch.plan.cost.fused_layer_cost`, admitted only where
     :func:`~repro_torch.plan.cost.fused_viable` says the launch can run.
     The static plan is scored unfused.
+
+    ``feedback`` + ``feedback_key``: when the
+    :class:`~repro_torch.obs.feedback.PlanFeedback` store holds a measured
+    execute-latency EWMA for a candidate (under ``feedback_key``, the
+    serving bucket's identity, and the candidate's
+    :func:`~repro_torch.obs.feedback.plan_key`), the measurement replaces
+    the modeled seconds in the comparison; candidates without one keep
+    the model's price (cold start).  The static default is re-priced by
+    its own measurement first, so the never-worse invariant holds in
+    measured terms whenever a measurement exists.  Measured seconds and
+    modeled seconds then meet in one argmin: the cold-start compromise,
+    which converges as the measurements cover the candidates.
     """
-    if feedback is not None:
-        raise _unported_feedback()
     device = cost_mod.model_or_default(device)
     stats = _as_stats(graph)
     errs = dict(precision_errors or {})
@@ -244,11 +253,30 @@ def choose_plan(
             return (False,)
         return (False, True)
 
+    measured_used = 0
+
+    def with_measured(modeled, impl, br, bk, bf, w, prec, fuse):
+        """A candidate's comparison seconds: its measured EWMA if the
+        store has one, else the modeled seconds."""
+        nonlocal measured_used
+        if feedback is None or feedback_key is None:
+            return modeled
+        from repro_torch.obs.feedback import plan_key  # deferred: no cycle
+
+        m = feedback.measured(
+            feedback_key, plan_key(impl, br, bk, bf, w, prec, fuse))
+        if m is None:
+            return modeled
+        measured_used += 1
+        return m
+
     # The static default leads: what plan_for_config(cfg, mesh) builds.
     static_impl = base_impl if (
         schedulable or base_impl != "cuda_sparse") else "cuda"
     static_secs, static_cost = layer_score(
         static_impl, *base_blocks, mesh_width, "f32", False)
+    static_secs = with_measured(
+        static_secs, static_impl, *base_blocks, mesh_width, "f32", False)
     best = (static_impl, *base_blocks, mesh_width, "f32", False)
     best_secs, best_cost = static_secs, static_cost
 
@@ -264,6 +292,8 @@ def choose_plan(
                                 n_cand += 1
                                 s, c = layer_score(impl, br, bk, bf, w, prec,
                                                    fuse)
+                                s = with_measured(s, impl, br, bk, bf, w,
+                                                  prec, fuse)
                                 if s < best_secs:
                                     best = (impl, br, bk, bf, w, prec, fuse)
                                     best_secs, best_cost = s, c
@@ -285,6 +315,7 @@ def choose_plan(
     return PlanChoice(
         plan=plan, cost=best_cost, static_plan=static_plan,
         static_cost=static_cost, n_candidates=n_cand,
+        measured_used=measured_used,
     )
 
 

@@ -24,9 +24,14 @@ geometric ladder of ``(nodes, ell_rows)`` buckets:
 
 Replays do not pass through the kernel wrappers, so ``LAUNCHES`` and the
 ``LEDGER`` records see a rung's kernels once, at its capture (as the
-reference's AOT executables are traced once); :meth:`record_batch_dram`
+reference's AOT executables are traced once); a CPU closure runs with the
+ledger muted, so it records nothing either.  :meth:`record_batch_dram`
 ledgers a coalesced forward host-side, and each captured graph keeps the
 launches of one forward and its replay count.
+
+:meth:`MicroBatcher.run` may be called from several threads (the async
+runtime's worker, a caller draining it): a lock serializes the lookup or
+build of an executable and its run, whose static buffers are shared.
 
 The fused kernels take slot lists (``kernels.flexvector_spmm.column_slots``)
 that the dispatcher builds from the ELL table on the host, which a capture
@@ -49,6 +54,7 @@ so any subgraph fits some bucket.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -221,7 +227,8 @@ class _EagerForward:
         self.fwd = fwd
 
     def __call__(self, params, inputs: Dict[str, torch.Tensor]) -> np.ndarray:
-        return self.fwd(params, inputs).numpy()
+        with LEDGER.muted():
+            return self.fwd(params, inputs).numpy()
 
 
 class MicroBatcher:
@@ -246,15 +253,17 @@ class MicroBatcher:
             raise NotImplementedError(
                 "mesh=: sharding bucket chunks over ranks is ROADMAP item A9b "
                 "(the serving mesh), not ported yet")
-        if feedback is not None:
-            raise NotImplementedError(
-                "feedback=: measured plan latencies are ROADMAP item A11 "
-                "(observability), not ported yet")
         self.cfg = cfg
         self.ladder = ladder
         self.max_batch = max_batch
         self.max_seeds = max_seeds
         self.device = resolve_device(device)
+        # Optional repro_torch.obs.feedback.PlanFeedback store: with
+        # ``autoplan`` on, per-rung planning prices a candidate by its
+        # measured execute latency before the modeled cost.  Plans stay
+        # pinned by the per-rung caches below, so feedback arriving after
+        # a rung was built never rebuilds it: it informs the next engine.
+        self.feedback = feedback
         # Kernel fusion per layer: ``None`` leaves it to the planner
         # (``autoplan`` may fuse layers it prices cheaper; otherwise two
         # launches), ``True``/``False`` force it on every kernel layer.
@@ -274,8 +283,10 @@ class MicroBatcher:
         self.compiles = 0          # executables built (warmup or on-demand)
         self.calls = 0             # coalesced forward invocations
         self._executables: Dict[tuple, object] = {}
+        self._bucket_plans: Dict[Tuple[Bucket, int], SpmmPlan] = {}
         self._layer_plans: Dict[Tuple[Bucket, int], List[SpmmPlan]] = {}
         self._pool = None          # the captures' CUDA graph memory pool
+        self._run_lock = threading.Lock()
 
     def set_bucket_precision(self, bucket: Bucket, precision: str) -> None:
         """Pin one rung's storage precision (call before the rung is built:
@@ -299,21 +310,64 @@ class MicroBatcher:
             tau=self.cfg.tau,
         )
 
+    def plan_for_bucket(self, bucket: Bucket, feature_dim: int) -> SpmmPlan:
+        """The one plan a rung is known by (its ``plan_key`` in traces and
+        in the feedback store).
+
+        With ``autoplan`` off this is the config's plan.  With it on, the
+        rung's synthetic stats go through ``plan.autoplan.choose_plan`` at
+        width 1 over ``reference`` and ``cuda`` (the coalesced operand has
+        no host ELL to schedule ``cuda_sparse`` from), consulting the
+        ``feedback`` store under the rung's bucket key.  Cached per
+        (bucket, feature_dim).
+        """
+        if not self.autoplan:
+            return self.plan
+        key = (bucket, feature_dim)
+        plan = self._bucket_plans.get(key)
+        if plan is None:
+            from repro_torch.plan.autoplan import choose_plan
+
+            feedback_key = None
+            if self.feedback is not None:
+                from repro_torch.obs.feedback import bucket_key
+
+                feedback_key = bucket_key(bucket, feature_dim)
+            choice = choose_plan(
+                self._rung_stats(bucket), feature_dim, self.cfg,
+                impls=("reference", "cuda"), schedulable=False,
+                device=self.device_model, feedback=self.feedback,
+                feedback_key=feedback_key)
+            plan = choice.plan.resolve(schedulable=False)
+            self._bucket_plans[key] = plan
+        return plan
+
     def layer_plans_for_bucket(self, bucket: Bucket,
                                feature_dim: int) -> List[SpmmPlan]:
         """One plan per layer for one rung's coalesced forward.
 
         With ``autoplan`` off every layer shares the config's plan.  With
         it on, the rung's synthetic stats go through the pipeline planner
-        (``exec.pipeline``), which picks impl, blocks and fusion per layer.
-        An explicit ``fused`` overrides the fusion both ways.  Cached per
-        (bucket, feature_dim), so the choice is made once, before the
-        rung is built.
+        (``exec.pipeline``), which picks impl, blocks and fusion per layer
+        — unless the feedback store has measured the rung: a measurement
+        prices the whole coalesced forward, so every layer then runs the
+        feedback-informed :meth:`plan_for_bucket`.  An explicit ``fused``
+        overrides the fusion both ways.  Cached per (bucket, feature_dim),
+        so the choice is made once, before the rung is built.
         """
         key = (bucket, feature_dim)
         plans = self._layer_plans.get(key)
         if plans is None:
-            if self.autoplan:
+            measured = False
+            if self.autoplan and self.feedback is not None:
+                from repro_torch.obs.feedback import bucket_key
+
+                measured = self.feedback.has_bucket(
+                    bucket_key(bucket, feature_dim))
+            if measured:
+                plans = ([self.plan_for_bucket(bucket, feature_dim)]
+                         * self.cfg.n_layers)
+            elif self.autoplan:
                 from repro_torch.exec.pipeline import plan_pipeline
 
                 pplan = plan_pipeline(self.cfg, self._rung_stats(bucket),
@@ -637,12 +691,13 @@ class MicroBatcher:
                 arrs.extend([torch.full_like(arrs[0], fill)] * pad)
             return torch.stack(arrs)
 
-        exe = self.executable(params, bucket, batch, feature_dim)
         inputs = {name: stack(name, fill)
                   for name, (_, _, fill) in specs.items()
                   if name not in _SLOT_INPUTS}
         if self.uses_slots(bucket, feature_dim):
             inputs.update(self._stack_slots(reqs, bucket, specs))
-        out = exe(params, inputs)
-        self.calls += 1
+        with self._run_lock:
+            exe = self.executable(params, bucket, batch, feature_dim)
+            out = exe(params, inputs)
+            self.calls += 1
         return [out[i, : r.n_seeds] for i, r in enumerate(reqs)]

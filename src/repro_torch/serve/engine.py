@@ -9,7 +9,9 @@ FlexVector SpMM core:
   fanout-capped extraction (bounded latency, independent of graph size);
 * ``query_batch``   — many concurrent seed queries, grouped by shape
   bucket and coalesced into one forward (one CUDA graph replay on the
-  card) per bucket chunk.
+  card) per bucket chunk: a synchronous facade over the async runtime
+  (``repro_torch.runtime``), which :meth:`ServeEngine.runtime` builds for
+  open-loop, deadline-aware serving.
 
 Every path records wall-clock latency per request; ``latency_report``
 summarizes p50/p99 and throughput (requests/s plus "tok-equivalent"
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +35,9 @@ from repro_torch.models.gcn import GCNConfig, init_params
 from repro_torch.serve.batcher import BucketLadder, MicroBatcher, PaddedRequest
 from repro_torch.serve.registry import ArtifactRegistry, graph_key
 from repro_torch.serve.sampler import SubgraphSampler
+
+if TYPE_CHECKING:
+    from repro_torch.runtime import ServeRuntime
 
 
 @dataclasses.dataclass
@@ -69,29 +74,6 @@ def latency_report(
         req_per_s=len(lat_ms) / wall,
         tok_per_s=total_seeds / wall,
     )
-
-
-def close_batches(buckets: Sequence, max_batch: int) -> List[List[int]]:
-    """Indices of the requests each coalesced forward takes, in order.
-
-    The batches the reference's runtime closes for requests submitted
-    together with no deadline: requests grouped per bucket in arrival
-    order (buckets in first-seen order); every group closes ``max_batch``
-    at a time while it is full, then what is left of each group closes in
-    ``max_batch`` chunks.
-    """
-    groups: Dict[object, List[int]] = {}
-    for i, bucket in enumerate(buckets):
-        groups.setdefault(bucket, []).append(i)
-    closed = []
-    for members in groups.values():
-        while len(members) >= max_batch:
-            closed.append(members[:max_batch])
-            del members[:max_batch]
-    for members in groups.values():
-        closed.extend(members[lo: lo + max_batch]
-                      for lo in range(0, len(members), max_batch))
-    return closed
 
 
 class ServeEngine:
@@ -186,6 +168,11 @@ class ServeEngine:
             device=self.device,
             device_model=device_model,
         )
+        # repro_torch.obs.feedback.PlanFeedback (or None): measured per-rung
+        # execute latency, consulted by autoplanned rungs at warmup
+        # (through the batcher above) and recorded into by runtimes built
+        # from :meth:`runtime`.
+        self.feedback = feedback
         self.timings: Dict[str, List[float]] = {}
         self.seeds_served: Dict[str, int] = {}
         self.wall: Dict[str, float] = {}
@@ -373,37 +360,51 @@ class ServeEngine:
     def query_batch(self, requests: Sequence[Sequence[int]]) -> List[np.ndarray]:
         """Answer many seed queries, coalescing per shape bucket.
 
-        Requests are grouped as the reference's runtime groups requests
-        submitted together with no deadline (:func:`close_batches`).
+        A synchronous facade over the ``repro_torch.runtime`` machinery:
+        every query is submitted (best effort, no deadline) into a
+        runtime's queue and the scheduler is drained on the calling
+        thread.  With equal priorities and no deadlines the scheduler's
+        EDF order is arrival order: each bucket's group closes
+        ``max_batch`` at a time while it is full, then what is left of
+        each group closes in ``max_batch`` chunks (buckets in first-seen
+        order), as the reference's facade closes them.
+
         Per-request latency spans its own extraction plus the coalesced
         forward it rode in (requests in one chunk share that cost), so the
         latency sum over-counts shared time; throughput uses the actual
         wall clock of the whole call.
         """
         t_call = time.perf_counter()
-        prepared, prep_s = [], []
-        for seeds in requests:
-            t0 = time.perf_counter()
-            prepared.append(self._prepare(seeds))
-            prep_s.append(time.perf_counter() - t0)
-        outputs: List[Optional[np.ndarray]] = [None] * len(prepared)
-        lats = list(prep_s)
-        for chunk in close_batches([r.bucket for r in prepared],
-                                   self.batcher.max_batch):
-            t0 = time.perf_counter()
-            outs = self.batcher.run(self.params, [prepared[i] for i in chunk])
-            exec_s = time.perf_counter() - t0
-            for i, out in zip(chunk, outs):
-                outputs[i] = out
-                lats[i] += exec_s
+        rt = self._sync_runtime()
+        reqs = [rt.submit(seeds) for seeds in requests]
+        rt.drain()
+        outputs = [r.future.result() for r in reqs]
+        lats = [r.prep_s + (r.exec_s or 0.0) for r in reqs]
         n_seeds = sum(len(o) for o in outputs)
         self._record("batch", lats, n_seeds, wall=time.perf_counter() - t_call)
         return outputs
 
-    def runtime(self, **kw):
-        raise NotImplementedError(
-            "runtime(): the async deadline-aware runtime is ROADMAP item A10, "
-            "not ported yet")
+    def runtime(self, **kw) -> "ServeRuntime":
+        """A fresh async runtime over this (ideally warmed) engine; see
+        :class:`repro_torch.runtime.ServeRuntime` for the knobs.  An engine
+        built with a ``feedback`` store hands it to every runtime (so
+        serving keeps feeding the EWMAs warmup consulted) unless the
+        caller overrides it here."""
+        from repro_torch.runtime import ServeRuntime
+
+        kw.setdefault("feedback", self.feedback)
+        return ServeRuntime(self, **kw)
+
+    def _sync_runtime(self) -> "ServeRuntime":
+        """The facade's runtime: unbounded (a synchronous batch must never
+        shed), never threaded (drained inline per call), and built fresh
+        per call so its raw-sample metrics registry stays bounded by one
+        batch.  Without a sojourn bound (``max_wait_s=None``, where the
+        reference keeps its 50 ms default): the batch is drained in the
+        same call, and a bound would only let the time the preparation
+        took decide the order in which the batches run."""
+        return self.runtime(capacity=None, graph_key=self.graph_key,
+                            max_wait_s=None)
 
     def servable(self, key: Optional[str] = None, **kw):
         raise NotImplementedError(

@@ -664,3 +664,91 @@ def test_cuda_sharded_launches_are_the_ops_dispatch_runs(cuda_device):
     for rank in ranks:
         for case, (names, want) in rank.items():
             assert len(names) == want, (case, names)
+
+
+# -- the async runtime: replays from the worker thread, spans -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,fused", [("f32", None), ("int8", True)],
+                         ids=["f32", "int8-fused"])
+def test_cuda_runtime_worker_replays_the_captured_graphs(cuda_device,
+                                                         tmp_path, precision,
+                                                         fused):
+    """A threaded ``ServeRuntime`` replays the rungs' CUDA graphs from its
+    worker thread: every answer equals the same engine's on the CPU, no
+    graph is captured after warmup, the replays ran off the caller's
+    thread, and each traced request has its spans and ledger events."""
+    import threading
+
+    from repro_torch.obs import PlanFeedback, Tracer
+
+    card, cpu = _serve_engines(cuda_device, tmp_path, precision, fused)
+    built = card.warmup()
+    reqs = _serve_requests(24, seed=13)
+    want = [cpu.query(s) for s in reqs]
+    threads = set()
+    run = card.batcher.run
+
+    def logged_run(params, padded):
+        threads.add(threading.current_thread().name)
+        return run(params, padded)
+
+    card.batcher.run = logged_run
+    calls0 = card.batcher.calls
+    replays0 = sum(e.replays for e in card.batcher._executables.values())
+    tracer, fb = Tracer(), PlanFeedback()
+    with card.runtime(capacity=64, tracer=tracer, feedback=fb) as rt:
+        subs = [rt.submit(s, deadline_s=5.0) for s in reqs]
+        got = [r.future.result(timeout=120.0) for r in subs]
+    _assert_answers_agree(got, want, precision)
+    assert card.compile_count == built
+    assert threads == {rt.loop.name}
+    replays = sum(e.replays for e in card.batcher._executables.values())
+    assert replays - replays0 == card.batcher.calls - calls0 > 0
+    m = rt.metrics.snapshot()["counters"]
+    assert m["completed"] == 24 and m["failed"] == 0
+    traces = tracer.drain()
+    assert len(traces) == 24 and {t.status for t in traces} == {"ok"}
+    for trace in traces:
+        [ex] = trace.find("execute")
+        assert len(trace.find("execute_layer")) == card.cfg.n_layers
+        assert {e.attributes["kind"] for e in ex.events} >= {"spmm_dram"}
+    assert len(fb) >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_runtime_capture_under_span_opens_no_span(cuda_device, tmp_path):
+    """An eager forward on the card under an active span opens one
+    ``execute_layer`` span per layer with its ledger events; a capture of
+    the rung's forward inside the span opens none and captures without
+    error, and its replay answers as the eager pass did."""
+    from repro_torch.obs import Tracer, use_span
+    from repro_torch.runtime import VirtualClock
+    from repro_torch.serve.batcher import _CapturedForward
+
+    card, _ = _serve_engines(cuda_device, tmp_path)
+    batcher = card.batcher
+    padded = card._prepare(_serve_requests(1)[0])
+    fdim = padded.feats.shape[1]
+    fwd = batcher._make_forward(padded.bucket, fdim)
+    specs = batcher.input_specs(padded.bucket, 1, fdim)
+    inputs = {name: torch.as_tensor(getattr(padded, name))[None].to(
+        cuda_device) for name in specs}
+    tracer = Tracer(clock=VirtualClock())
+    trace = tracer.trace("eager")
+    with use_span(trace.root):
+        eager = fwd(card.params, inputs)
+        torch.cuda.synchronize()
+    layers = trace.find("execute_layer")
+    assert len(layers) == card.cfg.n_layers
+    assert all(any(e.name == "ledger" for e in s.events) for s in layers)
+    exe = _CapturedForward(fwd, card.params, specs, cuda_device,
+                           torch.cuda.graph_pool_handle())
+    with use_span(trace.root):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fwd(exe.params, exe.inputs)
+    assert len(trace.find("execute_layer")) == card.cfg.n_layers
+    replayed = exe(card.params, {k: v.cpu() for k, v in inputs.items()})
+    assert rel_max_err(torch.as_tensor(replayed), eager) <= 1e-5

@@ -443,14 +443,14 @@ def test_candidate_widths_are_divisors():
 def test_choose_plan_one_card_only(kw, item):
     """Widths above 1 (item A9) are priced; without a process group or a
     mesh only width 1 can be placed, so the plan stays on one card; on a
-    2-wide mesh a width-2 plan is placed on it.  ``feedback=`` is still
-    item A11's."""
+    2-wide mesh a width-2 plan is placed on it.  ``feedback=`` (item A11)
+    without a ``feedback_key`` leaves the modeled choice as it is."""
     _, tell = _ells("small")
-    if item == "A11":
-        with pytest.raises(NotImplementedError, match=item):
-            tauto.choose_plan(tell, 16, _cfgs()[1], **kw)
-        return
     choice = tauto.choose_plan(tell, 16, _cfgs()[1], **kw)
+    if item == "A11":
+        assert choice == tauto.choose_plan(tell, 16, _cfgs()[1])
+        assert choice.measured_used == 0
+
     if "mesh" in kw:
         assert choice.plan.n_shards in (1, 2)
         assert (choice.plan.mesh is kw["mesh"]) == (choice.plan.n_shards == 2)

@@ -60,7 +60,6 @@ from repro_torch.serve import ServeEngine as TEngine
 from repro_torch.serve import SubgraphSampler as TSampler
 from repro_torch.serve import graph_key as t_graph_key
 from repro_torch.serve.cache import LruDict as TLruDict
-from repro_torch.serve.engine import close_batches
 from repro_torch.serve.engine import latency_report as t_latency_report
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -355,11 +354,77 @@ def test_query_batch_groups_as_reference_runtime(fanout):
     assert len(want) > 2 and any(len(c) == GEOMETRY["max_batch"] for c in want)
 
 
-def test_close_batches_full_groups_first():
-    buckets = ["a", "b", "a", "a", "b", "a", "c", "a", "b", "b", "b"]
-    assert close_batches(buckets, 2) == [
-        [0, 2], [3, 5], [1, 4], [8, 9], [7], [10], [6]]
-    assert close_batches(buckets, 8) == [[0, 2, 3, 5, 7], [1, 4, 8, 9, 10], [6]]
+@functools.lru_cache(maxsize=None)
+def _mixed_requests():
+    """13 requests of 1-4 seeds (the reference's facade test's draw),
+    which land in more than one rung when uncapped."""
+    rng = np.random.default_rng(5)
+    return tuple(rng.choice(SPEC.nodes, size=int(rng.integers(1, 5)),
+                            replace=False) for _ in range(13))
+
+
+def _facade_run(engine):
+    """``(outputs, chunks)`` of one ``query_batch`` over the mixed
+    requests: each chunk the request indices of one coalesced run."""
+    index, chunks = {}, []
+    prepare, run = engine._prepare, engine.batcher.run
+
+    def logged_prepare(seeds):
+        padded = prepare(seeds)
+        index[id(padded)] = len(index)
+        return padded
+
+    def logged_run(params, padded):
+        chunks.append(([index[id(p)] for p in padded], padded[0].bucket))
+        return run(params, padded)
+
+    engine._prepare = logged_prepare
+    engine.batcher.run = logged_run
+    outputs = [np.asarray(o) for o in engine.query_batch(list(_mixed_requests()))]
+    return outputs, chunks
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_facade(precision):
+    j_adj, _, feats = _toy()
+    jcfg, _ = _cfgs()
+    engine = JEngine(j_adj, feats, jcfg, params=_params(), fanout=None,
+                     precision=precision, **GEOMETRY)
+    outputs, chunks = _facade_run(engine)
+    return outputs, [(c, (b.nodes, b.rows)) for c, b in chunks]
+
+
+def test_query_batch_facade_chunks_match_reference():
+    """The runtime facade closes the reference facade's batches over
+    requests in more than one bucket: each bucket's group ``max_batch``
+    at a time while it is full, then each bucket's rest.  The port runs
+    them in that order (full closes, then the rests in first-seen bucket
+    order); the reference's facade keeps a 50 ms sojourn bound, so the
+    order in which it runs the rests depends on how long its preparation
+    took, and only the membership is compared."""
+    _, want = _reference_facade("f32")
+    _, got = _facade_run(_port_engine())
+    got = [(c, (b.nodes, b.rows)) for c, b in got]
+    assert sorted(got) == sorted(want)
+    assert len({b for _, b in want}) > 1
+    assert any(len(c) == GEOMETRY["max_batch"] for c, _ in want)
+    assert sorted(i for c, _ in want for i in c) == list(range(13))
+    full = [x for x in got if len(x[0]) == GEOMETRY["max_batch"]]
+    assert got[:len(full)] == full
+    first_seen = {b: min(i for c, bb in got if bb == b for i in c)
+                  for _, b in got}
+    rests = [first_seen[b] for _, b in got[len(full):]]
+    assert rests == sorted(rests)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_query_batch_facade_outputs_match_reference(precision):
+    want, _ = _reference_facade(precision)
+    got, _ = _facade_run(_port_engine(precision=precision))
+    assert len(got) == len(want) == 13
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert rel_max_err(g, w) <= RTOL
 
 
 # ---------------------------------------------------------------------------
@@ -647,8 +712,15 @@ def test_port_registry_ignores_reference_artifacts(tmp_path):
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "A9"), ({"feedback": object()}, "A11")])
 def test_unported_engine_options_raise(kw, item):
+    """``mesh=`` (A9b) still raises; ``feedback=`` (A11) is ported: the
+    engine keeps the store and hands it to its batcher."""
     _, t_adj, feats = _toy()
     _, tcfg = _cfgs()
+    if item == "A11":
+        engine = TEngine(t_adj, feats, tcfg, device="cpu", **kw)
+        assert engine.feedback is kw["feedback"]
+        assert engine.batcher.feedback is kw["feedback"]
+        return
     with pytest.raises(NotImplementedError, match=item):
         TEngine(t_adj, feats, tcfg, device="cpu", **kw)
 
@@ -656,7 +728,17 @@ def test_unported_engine_options_raise(kw, item):
 @pytest.mark.parametrize("method,item", [("runtime", "A10"),
                                          ("servable", "A12")])
 def test_unported_engine_methods_raise(method, item):
+    """``servable()`` (A12) still raises; ``runtime()`` (A10) is ported
+    and returns a runtime over this engine."""
+    from repro_torch.runtime import ServeRuntime
+
     engine = _port_engine()
+    if item == "A10":
+        rt = engine.runtime(capacity=4)
+        assert isinstance(rt, ServeRuntime) and rt.engine is engine
+        assert rt.graph_key == engine.graph_key and rt.queue.capacity == 4
+        rt.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=item):
         getattr(engine, method)()
 
@@ -678,7 +760,19 @@ def toy_dataset(monkeypatch):
 @pytest.mark.parametrize("flags,item", [(["--runtime-async"], "A10"),
                                         (["--fleet-config", "f.json"], "A12"),
                                         (["--mesh", "2"], "A9b")])
-def test_cli_unported_scenarios_raise(toy_dataset, flags, item):
+def test_cli_unported_scenarios_raise(toy_dataset, capsys, flags, item):
+    """``--fleet-config`` (A12) and ``--mesh`` (A9b) still raise;
+    ``--runtime-async`` (A10) is ported and serves the batch open-loop."""
+    if item == "A10":
+        # batches of one close as they arrive, and no deadline can lapse
+        serve_gcn.main(["--dataset", "toy", "--reduced", "--requests", "8",
+                        "--batch", "1", "--scenario", "batch", "--qps",
+                        "1000", "--deadline-ms", "60000", *flags],
+                       device="cpu")
+        out = capsys.readouterr().out
+        assert "async: offered 8 @ 1000 qps, completed 8, shed 0" in out
+        assert "[post-warmup compiles] 0 " in out
+        return
     with pytest.raises(NotImplementedError, match=item):
         serve_gcn.main(["--dataset", "toy", "--reduced", *flags], device="cpu")
 

@@ -138,10 +138,53 @@ Phases, in order; any failure exits non-zero:
    p50 and p99, the batches' close reasons and the median ``admission``,
    ``prepare``, ``queue_wait`` and ``execute`` spans.
 
+9. The fleet: three ``GcnServable``s behind one ``FleetRuntime`` at the
+   serving CLI's defaults and hidden 64 — the dataset (``cuda`` f32),
+   Cora (fused int8) and CiteSeer (``cuda`` bf16) — in a capacity of the
+   dataset's cost units + 1, so at most two are resident and traffic
+   forces unloads and reloads (each a capture of the servable's grid).
+   The tenants of ``examples/fleet_smoke.json`` (its LM entries wait for
+   ROADMAP A13): cold (priority 1, 400 ms) at 5 req/s on every servable
+   and hot (20 req/s quota, burst 4, 32 in flight) at 80 req/s on the
+   dataset, open loop for 40 s through ``fleet.run_open_loop_mix`` with
+   tracing, then the cold streams alone for 40 s.  Checks: every
+   completed answer within phase 5's limits of a reference-impl engine of
+   its servable; per tenant every submit completed, rejected or shed,
+   none failed, the hot tenant held to its quota; at least two loads and
+   two unloads; every capture inside a load, each load capturing the
+   servable's whole grid; no batch mixing servables; every trace
+   complete, a served one's execute span naming its servable; each
+   servable's kernel replayed; the device memory after a third unload of
+   the dataset's servable within 16 MiB of the first; and a one-servable
+   fleet, on a scripted ``VirtualClock`` scenario, closing the batches
+   of the engine's own ``ServeRuntime``, with its counters and sheds,
+   and feeding the same executables the same input bytes, its answers
+   within phase 5's f32 limits of the runtime's (their bitwise share is
+   printed beside that of a second runtime run).  Prints per tenant
+   completed, shed rate, SLO attainment mixed and alone, e2e p50/p99,
+   goodput, each servable's loads and mean reload time, and the cold
+   tenant's attainment difference with its 95% interval against the
+   reference's isolation bar (within 5%): met, not met, or not resolved
+   by the run's sample (reported, not gated).
+10. The serving mesh: ``ServeEngine(mesh=)`` in two spawned ranks over
+   one process group (gloo with both ranks on the card; NCCL given a
+   card each), ``cuda`` f32 and fused int8 at the dataset, under a time
+   limit as in phase 7.  Rank 0 leads: 200 requests through
+   ``query_batch`` and 200 open loop at 150 req/s through a traced
+   runtime (100 and 100 at 10 req/s at Reddit); rank 1 follows.  Checks:
+   rank 0's answers within phase 5's limits of an unmeshed engine's and
+   of the reference impl's; every rank replayed one chunk of each batch
+   the ranks divide and the whole of every other; the follower followed
+   every forward; no capture after warmup on either rank; the traces
+   (mesh width 1) and their ledger events those of an unmeshed engine.
+   Requests/s is printed as two ranks on one card, not a multi-GPU
+   figure.
+
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
 one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
-``{"sharding": ...}`` line and one ``{"async": ...}`` line, then as the
-last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+``{"sharding": ...}`` line, one ``{"async": ...}`` line, one
+``{"fleet": ...}`` line and one ``{"serving_mesh": ...}`` line, then as
+the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -306,6 +349,33 @@ SHARD_RANKS = 2
 SHARD_CHAINS = ("replicated", "pipelined")
 SHARD_REPS = {"pubmed": 10, "reddit": 3}
 SHARD_SECONDS = 900
+# Phase 9: the fleet.  Three servables at the serving CLI's defaults and
+# hidden 64: the run's dataset, Cora and CiteSeer, each ``(dataset,
+# impl, precision, fused)``; a capacity of the run's dataset's cost units
+# + 1, so two at most are resident and the cold traffic forces reloads.
+# The tenants are examples/fleet_smoke.json's (its LM entries wait for
+# ROADMAP A13): cold at 5 req/s on every servable, hot at 80 req/s on the
+# run's dataset, open loop for FLEET_SECONDS (600 cold requests, 3,200 hot);
+# then the cold streams alone for as long.
+FLEET_SERVABLES = ((None, "cuda", "f32", False), ("cora", "cuda", "int8", True),
+                   ("citeseer", "cuda", "bf16", False))
+FLEET_TENANTS = (dict(name="cold", priority=1, deadline_s=0.4),
+                 dict(name="hot", qps=20.0, burst=4.0, max_inflight=32))
+FLEET_COLD_QPS, FLEET_HOT_QPS = 5.0, 80.0
+FLEET_SECONDS = 40.0
+FLEET_ISOLATION = 0.05   # the reference's bar: cold attainment within 5%
+FLEET_MIN_SAMPLE = 30    # answers a share needs for its normal interval
+FLEET_MEMORY_SLACK = 16 * 2 ** 20   # bytes, across three unload cycles
+FLEET_IDENTITY_REQUESTS = 24
+# Phase 10: the serving mesh.  Two ranks over gloo on the one card (or a
+# card each over NCCL), ``(impl, precision, fused)`` engines at the
+# run's dataset; rank 0 serves ``batch`` requests through query_batch,
+# then ``async`` open loop at ``qps``; the spawn has MESH_SECONDS.
+MESH_RANKS = 2
+MESH_ENGINES = (("cuda", "f32", False), ("cuda", "int8", True))
+MESH_LOAD = {"pubmed": dict(batch=200, async_=200, qps=150.0),
+             "reddit": dict(batch=100, async_=100, qps=10.0)}
+MESH_SECONDS = 600
 
 
 class SmokeFailure(Exception):
@@ -1586,7 +1656,6 @@ def phase_sharding(torch, np, graph, cfg, params, feats, dev, dataset: str,
     the card, per precision) are computed here once and handed over in
     files; each rank checks its own results and returns them."""
     import pickle
-    import multiprocessing
 
     from repro_torch.exec.plan import SpmmPlan
     from repro_torch.models.gcn import GCNGraph, gcn_forward
@@ -1617,43 +1686,9 @@ def phase_sharding(torch, np, graph, cfg, params, feats, dev, dataset: str,
               f"{t1 - t0:.1f} s, the unsharded reference forwards in "
               f"{time.perf_counter() - t1:.1f} s; {SHARD_RANKS} ranks on "
               f"{min(n_cards, SHARD_RANKS)} card(s) over {backend}")
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=sharding_rank,
-                             args=(r, SHARD_RANKS, d, backend, dataset,
-                                   dataclasses.asdict(cfg)), daemon=True)
-                 for r in range(SHARD_RANKS)]
-        for proc in procs:
-            proc.start()
-        deadline = time.monotonic() + SHARD_SECONDS
-        while True:
-            codes = [proc.exitcode for proc in procs]
-            if all(c is not None for c in codes) or any(codes):
-                break
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.1)
-        for proc in procs:
-            if proc.exitcode is None:
-                proc.terminate()
-        for proc in procs:
-            proc.join(10)
-            if proc.exitcode is None:
-                proc.kill()
-                proc.join()
-        errors = []
-        for r, proc in enumerate(procs):
-            err = os.path.join(d, f"rank{r}.err")
-            if os.path.exists(err):
-                with open(err) as fh:
-                    errors.append(f"rank {r}: {fh.read().strip()}")
-            elif proc.exitcode != 0:
-                errors.append(f"rank {r}: exit code {proc.exitcode} (the "
-                              f"spawn's limit is {SHARD_SECONDS} s)")
-        check(not errors, "phase 7: " + "\n".join(errors))
-        ranks = []
-        for r in range(SHARD_RANKS):
-            with open(os.path.join(d, f"rank{r}.json")) as fh:
-                ranks.append(json.load(fh))
+        ranks = spawn_ranks(sharding_rank, SHARD_RANKS, d,
+                            (backend, dataset, dataclasses.asdict(cfg)),
+                            SHARD_SECONDS, 7)
     for key in ranks[0]["configs"]:
         print(f"phase 7: {key} forward median ms per rank "
               + ", ".join(f"{rk['configs'][key]['ms']:.3f}" for rk in ranks))
@@ -1663,6 +1698,54 @@ def phase_sharding(torch, np, graph, cfg, params, feats, dev, dataset: str,
             "backend": backend, "per_rank": ranks,
             "note": ("ranks share one card: per-shard kernel times, not "
                      "multi-GPU times") if n_cards < SHARD_RANKS else None}
+
+
+def spawn_ranks(target, world: int, directory: str, args: tuple,
+                seconds: float, phase: int) -> list:
+    """Run ``target(rank, world, directory, *args)`` in ``world`` spawned
+    processes under a limit of ``seconds`` in all: a rank that fails ends
+    its peers (a peer blocked in a collective would wait forever) and the
+    phase; returns each rank's ``rank<r>.json`` record."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, directory) + tuple(args),
+                         daemon=True)
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + seconds
+    while True:
+        codes = [proc.exitcode for proc in procs]
+        if all(c is not None for c in codes) or any(codes):
+            break
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    for proc in procs:
+        if proc.exitcode is None:
+            proc.terminate()
+    for proc in procs:
+        proc.join(10)
+        if proc.exitcode is None:
+            proc.kill()
+            proc.join()
+    errors = []
+    for r, proc in enumerate(procs):
+        err = os.path.join(directory, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as fh:
+                errors.append(f"rank {r}: {fh.read().strip()}")
+        elif proc.exitcode != 0:
+            errors.append(f"rank {r}: exit code {proc.exitcode} (the "
+                          f"spawn's limit is {seconds} s)")
+    check(not errors, f"phase {phase}: " + "\n".join(errors))
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(directory, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    return ranks
 
 
 def sharding_rank(rank: int, world: int, directory: str, backend: str,
@@ -2280,6 +2363,754 @@ def phase_async(torch, np, registry, data, cfg, params, dev,
     return {"engines": out, "spans": spans}
 
 
+# -- phase 9: the fleet ------------------------------------------------------------
+
+
+class FleetWatch:
+    """Wraps each servable's ``load`` and ``unload``: every load's seconds,
+    captures and thread, and the launches the servable's executables
+    replayed (harvested before each unload, which drops them)."""
+
+    def __init__(self, manager):
+        import threading
+
+        self.loads = {key: [] for key in manager.keys()}
+        self.replayed = {}
+        self._counted = {}
+        for key in manager.keys():
+            sv = manager.servable(key)
+            load, unload = sv.load, sv.unload
+
+            def timed_load(key=key, sv=sv, load=load):
+                before = sv.engine.compile_count
+                t0 = time.perf_counter()
+                load()
+                self.loads[key].append(
+                    (time.perf_counter() - t0,
+                     sv.engine.compile_count - before,
+                     threading.current_thread().name))
+
+            def harvested_unload(sv=sv, unload=unload):
+                self.harvest(sv, dropping=True)
+                unload()
+
+            sv.load, sv.unload = timed_load, harvested_unload
+
+    def harvest(self, sv, dropping: bool = False) -> None:
+        for e in list(sv.engine.batcher._executables.values()):
+            seen = (self._counted.pop(id(e), 0) if dropping
+                    else self._counted.get(id(e), 0))
+            for name, n in e.launches.items():
+                self.replayed[name] = (self.replayed.get(name, 0)
+                                       + (e.replays - seen) * n)
+            if not dropping:
+                self._counted[id(e)] = e.replays
+
+
+def fleet_servables(torch, registry, data, cfg, params, dev,
+                    dataset: str, impl_override=None) -> dict:
+    """``key -> (engine, precision)`` of FLEET_SERVABLES (``impl_override``
+    builds them all with that impl, fused off: the reference engines)."""
+    from repro_torch.graphs.datasets import DATASETS, load_dataset
+    from repro_torch.models.gcn import GCNConfig, init_params
+    from repro_torch.serve import ServeEngine
+
+    out = {}
+    for name, impl, precision, fused in FLEET_SERVABLES:
+        if name is None:
+            key, d, c, p = dataset, data, cfg, params
+        else:
+            spec = DATASETS[name]
+            key, d = name, load_dataset(name, seed=SEED)
+            c = GCNConfig(in_dim=spec.feature_dim, hidden_dim=HIDDEN,
+                          out_dim=spec.classes, n_layers=2)
+            p = init_params(c, torch.Generator().manual_seed(SEED), dev)
+        if impl_override is not None:
+            impl, fused = impl_override, False
+        engine = ServeEngine(
+            d.adj_norm, d.features, dataclasses.replace(c, spmm_impl=impl),
+            params=p, registry=registry, device=dev, precision=precision,
+            fused=fused, **SERVE)
+        out[key] = (engine, precision)
+    return out
+
+
+def per_tenant(counters: dict) -> dict:
+    """``tenant -> counter -> n``, summed over the other labels."""
+    from repro_torch.runtime.metrics import parse_labeled
+
+    out = {}
+    for k, v in counters.items():
+        name, labels = parse_labeled(k)
+        if "tenant" in labels:
+            t = out.setdefault(labels["tenant"], {})
+            t[name] = t.get(name, 0) + v
+    return out
+
+
+def fleet_mix(np, manager, loads, watch, *, traced: bool) -> dict:
+    """One open-loop run of ``loads`` through a fresh ``FleetRuntime``
+    over ``manager``: the per-tenant accounting (every attempt completed,
+    rejected or shed; none failed), no batch mixing servables, every
+    trace complete with the servable on its execute span; returns the
+    admitted requests, the per-tenant figures and the snapshot."""
+    from repro_torch.fleet import FleetRuntime, TenantPolicy, TenantTable
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.metrics import labeled
+
+    tracer = Tracer() if traced else None
+    rt = FleetRuntime(manager, tracer=tracer, tenants=TenantTable(
+        [TenantPolicy(**t) for t in FLEET_TENANTS]))
+    attempts, admitted, mixed = {}, [], []
+    submit, execute = rt.submit, rt.loop.execute
+
+    def recording_submit(servable, payload, **kw):
+        t = kw.get("tenant")
+        attempts[t] = attempts.get(t, 0) + 1
+        req = submit(servable, payload, **kw)
+        admitted.append(req)
+        return req
+
+    def checked_execute(batch):
+        mixed.extend(r.graph_key for r in batch.requests
+                     if r.graph_key != batch.bucket.servable)
+        return execute(batch)
+
+    rt.submit, rt.loop.execute = recording_submit, checked_execute
+    from repro_torch.fleet import run_open_loop_mix
+
+    with rt:
+        wall = run_open_loop_mix(rt, loads, rng=np.random.default_rng(1))
+    check(all(r.future.done() for r in admitted),
+          "phase 9: futures pending after shutdown")
+    check(not mixed, f"phase 9: batches mixed servables ({len(mixed)} "
+          f"requests in another servable's batch)")
+    snap = rt.metrics.snapshot()
+    c = snap["counters"]
+    check(c["failed"] == 0 and c["cancelled"] == 0,
+          f"phase 9: {c['failed']} failed, {c['cancelled']} cancelled")
+    tenants = per_tenant(c)
+    figures = {}
+    for t, n in attempts.items():
+        got = tenants.get(t, {})
+        settled = sum(v for k, v in got.items()
+                      if k in ("completed", "failed")
+                      or k.startswith(("rejected_", "shed_")))
+        check(settled == n, f"phase 9: tenant {t}: {n} submitted, "
+              f"{settled} completed, rejected or shed ({got})")
+        met, missed = got.get("slo_met", 0), got.get("slo_missed", 0)
+        e2e = snap["latency_ms"].get(labeled("e2e_s", tenant=t),
+                                     {"p50": None, "p99": None})
+        figures[t] = {
+            "submitted": n, "completed": got.get("completed", 0),
+            "rejected_quota": got.get("rejected_quota", 0),
+            "rejected_inflight": got.get("rejected_inflight", 0),
+            "rejected_infeasible": got.get("rejected_infeasible", 0),
+            "rejected_queue_full": got.get("rejected_queue_full", 0),
+            "shed_expired": got.get("shed_expired", 0),
+            "shed_rate": 1.0 - got.get("completed", 0) / n,
+            "slo_attainment": met / max(met + missed, 1),
+            "slo_counted": met + missed,
+            "e2e_p50_ms": e2e["p50"], "e2e_p99_ms": e2e["p99"],
+            "goodput_rps": met / max(wall, 1e-9)}
+    traces = tracer.drain() if traced else []
+    spans = {}
+    if traced:
+        check(len(traces) == sum(attempts.values()) and all(
+            t.done for t in traces), f"phase 9: {len(traces)} traces for "
+            f"{sum(attempts.values())} submitted requests")
+        served = [t for t in traces if t.status == "ok"]
+        for t in served:
+            [ex] = t.find("execute")
+            check(ex.attributes.get("servable") == t.root.attributes[
+                "servable"] and ex.attributes.get("mesh_width") == 1
+                and any(e.name == "ledger" for e in ex.events),
+                f"phase 9: trace {t.trace_id}'s execute span lacks its "
+                f"servable, mesh width or ledger events")
+        spans = {name: median_ms([s for t in served for s in t.find(name)])
+                 for name in ("prepare", "queue_wait", "execute")}
+    return {"admitted": admitted, "tenants": figures, "wall_s": wall,
+            "snapshot": snap, "traces": len(traces),
+            "span_median_ms": spans}
+
+
+def step_drive(rt) -> None:
+    """Step a runtime on a VirtualClock at each close trigger, then drain."""
+    for _ in range(256):
+        rt.loop.step()
+        nxt = rt.scheduler.next_close_time()
+        if nxt is None:
+            break
+        if nxt > rt.clock.now():
+            rt.clock.set_time(nxt)
+    rt.loop.drain()
+
+
+def fleet_identity(torch, np, engine, requests) -> dict:
+    """A fleet holding one GcnServable of ``engine`` and the engine's own
+    ``ServeRuntime``, the same submissions (1-3 s deadlines, 0.1 s apart)
+    on a VirtualClock: the same batches, counters and outcomes, and every
+    replay fed the same executable with the same input bytes.  The
+    answers are held to phase 5's f32 limits and their bitwise share is
+    printed beside that of a second ServeRuntime run: a replay folds the
+    vertex-cut partials with ``index_add_``'s atomics, whose order (and
+    so the last bits of a row with three or more partials) changes from
+    run to run."""
+    import hashlib
+
+    from repro_torch.fleet import FleetManager, FleetRuntime
+    from repro_torch.runtime import VirtualClock
+
+    engine.warmup()
+    batcher = engine.batcher
+    executable = batcher.executable
+
+    def script(rt, submit):
+        log, fed = [], []
+        execute = rt.loop.execute
+
+        def logged(batch):
+            log.append(([r.seq for r in batch.requests], batch.reason,
+                        batch.closed_at))
+            return execute(batch)
+
+        def recording(params, bucket, batch, fdim):
+            exe = executable(params, bucket, batch, fdim)
+
+            def call(p, inputs):
+                h = hashlib.sha1()
+                for name in sorted(inputs):
+                    h.update(name.encode())
+                    h.update(inputs[name].contiguous().view(-1).view(
+                        torch.uint8).numpy().tobytes())
+                fed.append((bucket, batch, id(exe), h.hexdigest()))
+                return exe(p, inputs)
+
+            return call
+
+        rt.loop.execute, batcher.executable = logged, recording
+        try:
+            reqs = []
+            for i, seeds in enumerate(requests):
+                reqs.append(submit(rt, seeds, float(1 + i % 3)))
+                rt.clock.advance(0.1)
+            step_drive(rt)
+            rt.shutdown()
+        finally:
+            del batcher.executable
+        outs = [type(r.future.exception()).__name__
+                if r.future.exception(timeout=60) is not None
+                else r.future.result() for r in reqs]
+        counts = {k: rt.metrics.count(k) for k in (
+            "batches_full", "batches_deadline", "batches_flush",
+            "completed", "shed_expired")}
+        return outs, log, counts, fed
+
+    def solo_run():
+        rt = engine.runtime(capacity=64, clock=VirtualClock(start=100.0))
+        return script(rt, lambda rt, s, d: rt.submit(s, deadline_s=d))
+
+    want = solo_run()
+    mgr = FleetManager(capacity_units=4.0)
+    mgr.register(engine.servable(key="identity"))
+    mgr.resolve("identity")
+    fleet = FleetRuntime(mgr, capacity=64, clock=VirtualClock(start=100.0))
+    got = script(fleet, lambda rt, s, d: rt.submit("identity", s,
+                                                   deadline_s=d))
+    again = solo_run()
+    check(got[1] == want[1] and got[2] == want[2],
+          f"phase 9: the one-servable fleet closed other batches than the "
+          f"engine's runtime ({got[2]} vs {want[2]})")
+    check(got[3] == want[3], "phase 9: the one-servable fleet fed its "
+          "executables other inputs than the engine's runtime")
+    check([isinstance(o, str) and o for o in got[0]]
+          == [isinstance(o, str) and o for o in want[0]],
+          "phase 9: the one-servable fleet shed other requests")
+    served = [i for i, o in enumerate(want[0]) if not isinstance(o, str)]
+    check(got[2]["completed"] == len(served) > 0,
+          "phase 9: the identity scenario completed nothing")
+
+    def bitwise(a, b):
+        return sum(1 for i in served if np.array_equal(a[0][i], b[0][i]))
+
+    reading = hold(torch, np, "identity", f"{len(served)} one-servable "
+                   f"fleet answers vs the engine's runtime",
+                   [got[0][i] for i in served],
+                   [want[0][i] for i in served], "f32", FORWARD_FLIP_SHARE,
+                   phase=9)
+    out = {"requests": len(requests), "served": len(served),
+           "counters": got[2], "replays": len(got[3]),
+           "bitwise_fleet_vs_runtime": bitwise(got, want),
+           "bitwise_runtime_rerun": bitwise(again, want),
+           "vs_runtime": reading}
+    print(f"phase 9: one-servable fleet vs ServeRuntime: the same "
+          f"{len(got[3])} replays on the same input bytes, batches "
+          f"{got[2]}; answers bitwise equal {out['bitwise_fleet_vs_runtime']}"
+          f" of {len(served)} (a second ServeRuntime run: "
+          f"{out['bitwise_runtime_rerun']} of {len(served)})")
+    return out
+
+
+def isolation_verdict(mixed: dict, alone: dict) -> dict:
+    """The cold tenant's attainment mixed minus alone, with the half-width
+    of its 95% interval (two independent binomial shares); the bar of
+    FLEET_ISOLATION is met when the whole interval lies within it, not
+    met when the whole interval lies outside, and else, or when either
+    share counts fewer than FLEET_MIN_SAMPLE answers, not resolved by the
+    run's sample."""
+    p1, n1 = mixed["slo_attainment"], mixed["slo_counted"]
+    p2, n2 = alone["slo_attainment"], alone["slo_counted"]
+    diff = p1 - p2
+    half = 1.96 * (p1 * (1 - p1) / max(n1, 1)
+                   + p2 * (1 - p2) / max(n2, 1)) ** 0.5
+    if min(n1, n2) < FLEET_MIN_SAMPLE:
+        verdict = "not resolved by this sample"
+    elif abs(diff) + half <= FLEET_ISOLATION:
+        verdict = "met"
+    elif abs(diff) - half > FLEET_ISOLATION:
+        verdict = "not met"
+    else:
+        verdict = "not resolved by this sample"
+    return {"difference": diff, "ci95": half, "verdict": verdict}
+
+
+def phase_fleet(torch, np, fv, registry, data, cfg, params, dev,
+                dataset: str) -> dict:
+    """Phase 9: three GcnServables behind one FleetRuntime under two
+    tenants, the cold streams alone after, then the memory of three
+    unload cycles and the one-servable identity."""
+    import gc
+
+    from repro_torch.fleet import FleetManager, TenantLoad
+
+    t0 = time.perf_counter()
+    built = fleet_servables(torch, registry, data, cfg, params, dev, dataset)
+    servables = {k: e.servable(key=k) for k, (e, _) in built.items()}
+    capacity = servables[dataset].cost_units() + 1.0
+    manager = FleetManager(capacity_units=capacity)
+    for sv in servables.values():
+        manager.register(sv)
+    watch = FleetWatch(manager)
+    print(f"phase 9: servables {[(k, e.cfg.spmm_impl, p) for k, (e, p) in built.items()]} "
+          f"(costs {[sv.cost_units() for sv in servables.values()]}) in a "
+          f"capacity of {capacity} units, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n = {"cold": int(FLEET_COLD_QPS * FLEET_SECONDS),
+         "hot": int(FLEET_HOT_QPS * FLEET_SECONDS)}
+    cold, hot = {}, None
+    for key, sv in servables.items():
+        n_nodes = sv.engine.graph.n_nodes
+        sizes = [n["cold"], n["hot"]] if key == dataset else [n["cold"]]
+        draws = serve_draws(np, n_nodes, sizes)
+        cold[key] = draws[0]
+        if key == dataset:
+            hot = draws[1]
+    deadline = FLEET_TENANTS[0]["deadline_s"]
+    cold_loads = [TenantLoad("cold", key, cold[key], FLEET_COLD_QPS,
+                             deadline_s=deadline) for key in servables]
+    hot_load = TenantLoad("hot", dataset, hot, FLEET_HOT_QPS,
+                          deadline_s=deadline)
+    start = {k: sv.engine.compile_count for k, sv in servables.items()}
+
+    fv.reset_launches()
+    mixed = fleet_mix(np, manager, cold_loads + [hot_load], watch,
+                      traced=True)
+    solo = fleet_mix(np, manager, cold_loads, watch, traced=False)
+    for sv in servables.values():
+        watch.harvest(sv)
+    counted = {k: v for k, v in fv.PRECISION_LAUNCHES.items() if v}
+    replayed = {k: v for k, v in watch.replayed.items() if v}
+    for name, impl, precision, fused in FLEET_SERVABLES:
+        tag = "_scaled" if precision == "int8" else ""
+        kernel = ("spmm_ell_fused_dense_grid" if fused
+                  else "spmm_ell_dense_grid") + f"{tag}@{precision}"
+        check(replayed.get(kernel, 0) > 0,
+              f"phase 9: {name or dataset}'s replays ran no {kernel}")
+    print(f"phase 9: launches counted (captures in loads) {counted}, "
+          f"replayed {replayed}")
+
+    loads_out = {}
+    for key, sv in servables.items():
+        loads = watch.loads[key]
+        grid = {c for _, c, _ in loads}
+        check(len(grid) == 1 and min(grid) > 0 and sum(
+            c for _, c, _ in loads) == sv.engine.compile_count - start[key],
+            f"phase 9: {key}: captures outside load(), or a load that did "
+            f"not capture the grid ({[c for _, c, _ in loads]}; compiles "
+            f"{sv.engine.compile_count - start[key]})")
+        reloads = [s for s, _, _ in loads[1:]]
+        loads_out[key] = {
+            "loads": len(loads), "captures_per_load": min(grid),
+            "first_load_s": loads[0][0],
+            "mean_reload_s": (sum(reloads) / len(reloads) if reloads
+                              else None),
+            "threads": sorted({t for _, _, t in loads})}
+    check(manager.loads >= 2 and manager.unloads >= 2,
+          f"phase 9: {manager.loads} loads, {manager.unloads} unloads")
+    hot_fig = mixed["tenants"]["hot"]
+    check(hot_fig["rejected_quota"] > 0,
+          "phase 9: the hot tenant was never held to its quota")
+
+    # every completed answer against a reference-impl engine of its servable
+    refs = fleet_servables(torch, registry, data, cfg, params, dev, dataset,
+                           impl_override="reference")
+    answers = {}
+    for key, (ref, precision) in refs.items():
+        done = [r for run in (mixed, solo) for r in run["admitted"]
+                if r.graph_key == key and r.future.exception() is None]
+        got = [r.future.result() for r in done]
+        want = ref.query_batch([list(r.seeds) for r in done])
+        answers[key] = hold(torch, np, key, f"{len(done)} fleet answers vs "
+                            f"the reference impl", got, want, precision,
+                            SERVE_FLIP_SHARE[precision], phase=9)
+        ref.batcher.clear_executables()
+    del refs
+
+    engine = servables[dataset].engine
+    identity = fleet_identity(torch, np, engine, serve_draws(
+        np, engine.graph.n_nodes, [FLEET_IDENTITY_REQUESTS])[0])
+
+    # three unload/reload cycles of the run's servable
+    sv = servables[dataset]
+    levels = []
+    for _ in range(3):
+        sv.load()
+        sv.unload()
+        gc.collect()
+        torch.cuda.synchronize()
+        levels.append(torch.cuda.memory_allocated(dev))
+    drift = levels[2] - levels[0]
+    print(f"phase 9: device memory allocated after each of three unloads "
+          f"of {dataset}: {levels} bytes (drift {drift} bytes, limit "
+          f"{FLEET_MEMORY_SLACK})")
+    check(abs(drift) <= FLEET_MEMORY_SLACK,
+          f"phase 9: {drift} bytes held across three unload cycles")
+
+    cold_mixed = mixed["tenants"]["cold"]["slo_attainment"]
+    cold_solo = solo["tenants"]["cold"]["slo_attainment"]
+    for label, run in (("mixed", mixed), ("cold alone", solo)):
+        for t, f in run["tenants"].items():
+            p50 = ("n/a" if f["e2e_p50_ms"] is None
+                   else f"{f['e2e_p50_ms']:.3f}/{f['e2e_p99_ms']:.3f}")
+            print(f"phase 9: {label}, tenant {t}: {f['completed']} of "
+                  f"{f['submitted']} completed, shed rate "
+                  f"{f['shed_rate']:.3f} (quota {f['rejected_quota']}, "
+                  f"inflight {f['rejected_inflight']}, infeasible "
+                  f"{f['rejected_infeasible']}, expired "
+                  f"{f['shed_expired']}); SLO attainment "
+                  f"{f['slo_attainment']:.3f}; e2e p50/p99 ms {p50}; "
+                  f"goodput {f['goodput_rps']:.1f} req/s")
+    isolation = isolation_verdict(mixed["tenants"]["cold"],
+                                  solo["tenants"]["cold"])
+    print("phase 9: mixed run, median span ms of served requests "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in mixed["span_median_ms"].items()))
+    print(f"phase 9: cold attainment mixed {cold_mixed:.3f} of "
+          f"{mixed['tenants']['cold']['slo_counted']} vs alone "
+          f"{cold_solo:.3f} of {solo['tenants']['cold']['slo_counted']}: "
+          f"difference {isolation['difference']:+.3f} +- "
+          f"{isolation['ci95']:.3f} (95%); the reference's isolation bar "
+          f"(within {FLEET_ISOLATION:.0%}) {isolation['verdict']} (not "
+          f"gated); loads "
+          f"{manager.loads}, unloads {manager.unloads}; "
+          + "; ".join(f"{k} {v['loads']} loads of {v['captures_per_load']} "
+                      f"graphs, first {v['first_load_s']:.3f} s, reload "
+                      + ("n/a" if v["mean_reload_s"] is None
+                         else f"{v['mean_reload_s']:.3f} s")
+                      for k, v in loads_out.items()))
+    for sv in servables.values():
+        sv.engine.batcher.clear_executables()
+    torch.cuda.empty_cache()
+    return {
+        "dataset": dataset, "capacity_units": capacity,
+        "servables": {k: {"impl": e.cfg.spmm_impl, "precision": p,
+                          "fused": e.batcher.fused,
+                          "cost_units": servables[k].cost_units(),
+                          **loads_out[k]} for k, (e, p) in built.items()},
+        "tenants": list(FLEET_TENANTS), "load": n,
+        "mixed": {k: mixed[k] for k in ("tenants", "wall_s", "traces",
+                                        "span_median_ms")},
+        "cold_alone": {k: solo[k] for k in ("tenants", "wall_s")},
+        "isolation": isolation,
+        "manager": {"loads": manager.loads, "unloads": manager.unloads},
+        "launches": {"counted": counted, "replayed": replayed},
+        "vs_reference": answers, "identity": identity,
+        "memory_after_unloads": levels,
+    }
+
+
+# -- phase 10: the serving mesh ---------------------------------------------------
+
+
+def phase_serving_mesh(torch, np, registry, data, graph, cfg, params, dev,
+                       dataset: str, card: str) -> dict:
+    """Phase 10: ``ServeEngine(mesh=)`` in MESH_RANKS spawned ranks, rank 0
+    leading and the others following.  The dataset, its preprocessed
+    graph (in a registry cache), the weights, the requests and the
+    answers of an unmeshed engine and of the reference impl on the card
+    are handed over in files; rank 0 holds its answers, traces and
+    ledger against them, and every rank reports its chunks and captures.
+    """
+    import pickle
+
+    from repro_torch.models.gcn import GCNGraph
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import cache as disk_cache
+    from repro_torch.serve.registry import graph_key
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MESH_RANKS else "gloo"
+    load = MESH_LOAD[dataset]
+    requests = serve_draws(np, data.adj_norm.rows,
+                           [load["batch"] + load["async_"]])[0]
+    t0 = time.perf_counter()
+    answers = {}
+    refs = {}
+    for impl, precision, fused in MESH_ENGINES:
+        key = f"{impl}{'+fused' if fused else ''}@{precision}"
+        plain = ServeEngine(
+            data.adj_norm, data.features,
+            dataclasses.replace(cfg, spmm_impl=impl), params=params,
+            registry=registry, device=dev, precision=precision, fused=fused,
+            **SERVE)
+        plain.warmup()
+        if precision not in refs:
+            ref = ServeEngine(
+                data.adj_norm, data.features,
+                dataclasses.replace(cfg, spmm_impl="reference"),
+                params=params, registry=registry, device=dev,
+                precision=precision, **SERVE)
+            refs[precision] = ref.query_batch(requests)
+            ref.batcher.clear_executables()
+        answers[key] = {"plain": plain.query_batch(requests),
+                        "reference": refs[precision]}
+        plain.batcher.clear_executables()
+        del plain
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        adj = data.adj_norm
+        np.savez(os.path.join(d, "adj.npz"), indptr=adj.indptr,
+                 indices=adj.indices, data=adj.data, shape=np.asarray(
+                     adj.shape))
+        np.save(os.path.join(d, "features.npy"), data.features)
+        torch.save({name: {k: v.cpu() for k, v in layer.items()}
+                    for name, layer in params.items()},
+                   os.path.join(d, "params.pt"))
+        with open(os.path.join(d, "requests.pkl"), "wb") as fh:
+            pickle.dump({"requests": requests, "answers": answers}, fh)
+        # the preprocessed graph (without its per-tile views) where each
+        # rank's registry finds it on disk
+        handed = GCNGraph(pre=dataclasses.replace(graph.pre, tiles=[]),
+                          n_nodes=graph.n_nodes, inv=graph.inv)
+        disk_cache.store_pickle(
+            graph_key(adj, cfg), handed,
+            os.path.join(d, "cache", disk_cache.NAMESPACE))
+        print(f"phase 10: unmeshed and reference-impl answers to "
+              f"{len(requests)} requests in {t1 - t0:.1f} s, handed over in "
+              f"{time.perf_counter() - t1:.1f} s; {MESH_RANKS} ranks on "
+              f"{min(n_cards, MESH_RANKS)} card(s) over {backend}")
+        ranks = spawn_ranks(mesh_rank, MESH_RANKS, d,
+                            (backend, dataset, dataclasses.asdict(cfg)),
+                            MESH_SECONDS, 10)
+    out = {}
+    for key in ranks[0]["engines"]:
+        lead = ranks[0]["engines"][key]
+        widths = lead["widths"]
+        sharded = sum(1 for w in widths if w % MESH_RANKS == 0)
+        want = {"sharded": sharded, "replicated": len(widths) - sharded}
+        for r, rk in enumerate(ranks):
+            e = rk["engines"][key]
+            check(e["mesh_runs"] == want, f"phase 10: {key}: rank {r} ran "
+                  f"{e['mesh_runs']} chunks, want {want}")
+            check(e["post_warmup_captures"] == 0, f"phase 10: {key}: rank "
+                  f"{r} captured {e['post_warmup_captures']} graphs after "
+                  f"warmup")
+        for r, rk in enumerate(ranks[1:], 1):
+            e = rk["engines"][key]
+            check(e["followed"] == lead["calls"] == len(widths),
+                  f"phase 10: {key}: rank {r} followed {e['followed']} of "
+                  f"{lead['calls']} forwards")
+        print(f"phase 10: {key}: {len(widths)} coalesced forwards, "
+              f"{sharded} split over the ranks, {len(widths) - sharded} "
+              f"replicated; query_batch of {load['batch']} at "
+              f"{lead['batch_rps']:.1f} req/s (two ranks on one card over "
+              f"gloo, not a multi-GPU figure); replayed launches per rank "
+              + "; ".join(str(rk["engines"][key]["replayed"])
+                          for rk in ranks))
+        out[key] = {"per_rank": [rk["engines"][key] for rk in ranks],
+                    "expected_chunks": want}
+    return {"dataset": dataset, "card": card, "ranks": MESH_RANKS,
+            "cards": n_cards, "backend": backend, "load": load,
+            "engines": out,
+            "note": ("two ranks on one card over gloo, not a multi-GPU "
+                     "figure") if n_cards < MESH_RANKS else None}
+
+
+def mesh_rank(rank: int, world: int, directory: str, backend: str,
+              dataset: str, cfg: dict) -> None:
+    """One rank of phase 10: joins the process group (a ``FileStore`` in
+    ``directory``), runs :func:`mesh_serve` and writes its record, or its
+    error, beside the inputs."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(directory, "store"),
+                                          world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=MESH_SECONDS))
+        out = mesh_serve(torch, rank, world, directory, dataset, cfg)
+        with open(os.path.join(directory, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        os._exit(1)
+
+
+def mesh_serve(torch, rank: int, world: int, directory: str, dataset: str,
+               cfg_fields: dict) -> dict:
+    """Each MESH_ENGINES engine with ``mesh=`` on this rank.  Rank 0 serves
+    ``query_batch`` and an open-loop traced runtime, stops the followers
+    and holds its answers against the unmeshed engine's and the reference
+    impl's, and its traces against an unmeshed engine's plans and
+    ledger; the other ranks follow."""
+    import pickle
+
+    import numpy as np
+
+    from repro_torch.core.sparse_formats import CSRMatrix
+    from repro_torch.launch.mesh import make_data_mesh, mesh_device
+    from repro_torch.models.gcn import GCNConfig
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime import run_open_loop
+    from repro_torch.serve import ArtifactRegistry, ServeEngine
+
+    cfg = GCNConfig(**cfg_fields)
+    z = np.load(os.path.join(directory, "adj.npz"))
+    adj = CSRMatrix(indptr=z["indptr"], indices=z["indices"], data=z["data"],
+                    shape=tuple(int(x) for x in z["shape"]))
+    feats = np.load(os.path.join(directory, "features.npy"))
+    mesh = make_data_mesh(world)
+    dev = mesh_device(mesh)
+    params = {name: {k: v.to(dev) for k, v in layer.items()}
+              for name, layer in torch.load(
+                  os.path.join(directory, "params.pt")).items()}
+    with open(os.path.join(directory, "requests.pkl"), "rb") as fh:
+        handed = pickle.load(fh)
+    requests = handed["requests"]
+    registry = ArtifactRegistry(cache_dir=os.path.join(directory, "cache"))
+    load = MESH_LOAD[dataset]
+    out = {"rank": rank, "engines": {}}
+    for impl, precision, fused in MESH_ENGINES:
+        key = f"{impl}{'+fused' if fused else ''}@{precision}"
+        kw = dict(params=params, registry=registry, device=dev,
+                  precision=precision, fused=fused, **SERVE)
+        engine = ServeEngine(adj, feats,
+                             dataclasses.replace(cfg, spmm_impl=impl),
+                             mesh=mesh, **kw)
+        t0 = time.perf_counter()
+        built = engine.warmup()
+        rec = {"captures": built, "warmup_s": time.perf_counter() - t0}
+        exes = engine.batcher._executables
+        if rank == 0:
+            widths = []
+            run = engine.batcher.run
+
+            def logged(p, reqs, run=run):
+                widths.append(engine.batcher.pad_batch(len(reqs)))
+                return run(p, reqs)
+
+            engine.batcher.run = logged
+            t1 = time.perf_counter()
+            got = engine.query_batch(requests[:load["batch"]])
+            batch_s = time.perf_counter() - t1
+            tracer, admitted = Tracer(), []
+            rt = engine.runtime(capacity=256, tracer=tracer)
+            submit = rt.submit
+
+            def recording_submit(*a, **k):
+                req = submit(*a, **k)
+                admitted.append(req)
+                return req
+
+            rt.submit = recording_submit
+            with rt:
+                wall = run_open_loop(rt, requests[load["batch"]:],
+                                     qps=load["qps"],
+                                     deadline_s=ASYNC_DEADLINE_S,
+                                     rng=np.random.default_rng(1))
+            engine.stop_followers()
+            check(all(r.future.done() for r in admitted),
+                  f"phase 10: {key}: futures pending after shutdown")
+            snap = rt.metrics.snapshot()
+            c = snap["counters"]
+            check(c["failed"] == 0 and c["submitted"] == load["async_"]
+                  == c["completed"] + c["rejected_queue_full"]
+                  + c["rejected_infeasible"] + c["shed_expired"]
+                  + c["cancelled"],
+                  f"phase 10: {key}: accounting {c}")
+            index = {tuple(s.tolist()): i for i, s in enumerate(requests)}
+            done = [r for r in admitted if r.future.exception() is None]
+            picked = list(range(load["batch"])) + [
+                index[tuple(r.seeds)] for r in done]
+            got += [r.future.result() for r in done]
+            answers = handed["answers"][key]
+            flips = SERVE_FLIP_SHARE[precision]
+            rec["vs_unmeshed"] = hold(
+                torch, np, key, f"{len(got)} meshed answers vs the unmeshed "
+                f"engine's", got, [answers["plain"][i] for i in picked],
+                precision, flips, phase=10)
+            rec["vs_reference"] = hold(
+                torch, np, key, f"{len(got)} meshed answers vs the "
+                f"reference impl", got,
+                [answers["reference"][i] for i in picked], precision,
+                flips, phase=10)
+            traces = tracer.drain()
+            unmeshed = ServeEngine(adj, feats,
+                                   dataclasses.replace(cfg, spmm_impl=impl),
+                                   **kw)
+            rec["span_median_ms"] = check_traces(
+                unmeshed, key, traces, admitted, c["submitted"])
+            widths_ok = all(
+                s.attributes["mesh_width"] == 1
+                for t in traces for s in t.find("execute"))
+            check(widths_ok, f"phase 10: {key}: a trace names a mesh width "
+                  f"other than 1")
+            rec.update(widths=widths, batch_rps=load["batch"] / batch_s,
+                       async_wall_s=wall, completed=c["completed"],
+                       slo_attainment=snap["derived"]["slo_attainment"])
+        else:
+            rec["followed"] = engine.follow()
+        rec["post_warmup_captures"] = engine.compile_count - built
+        rec["calls"] = engine.batcher.calls
+        rec["mesh_runs"] = dict(engine.batcher.mesh_runs)
+        replayed = {}
+        for e in exes.values():
+            for name, n in e.launches.items():
+                replayed[name] = replayed.get(name, 0) + e.replays * n
+        rec["replayed"] = replayed
+        tag = "_scaled" if precision == "int8" else ""
+        kernel = ("spmm_ell_fused_dense_grid" if fused
+                  else "spmm_ell_dense_grid") + f"{tag}@{precision}"
+        check(replayed.get(kernel, 0) > 0,
+              f"phase 10: {key}: rank {rank} replayed no {kernel}")
+        engine.batcher.clear_executables()
+        del engine
+        torch.cuda.empty_cache()
+        out["engines"][key] = rec
+    return out
+
+
 def run(args) -> int:
     try:
         import torch
@@ -2309,7 +3140,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-8 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-10 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -2368,6 +3199,14 @@ def drive(torch, np, args, cache_dir: str) -> int:
     runtime = phase_async(torch, np, registry, data, cfg, params, dev,
                           args.dataset)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    fleet = phase_fleet(torch, np, fv, registry, data, cfg, params, dev,
+                        args.dataset)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    serving_mesh = phase_serving_mesh(torch, np, registry, data, graph, cfg,
+                                      params, dev, args.dataset, card)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -2414,6 +3253,13 @@ def drive(torch, np, args, cache_dir: str) -> int:
                         if k.split("@")[0] == name}
                   for how, counts in e["launches"].items()}
             for key, e in serving.items()}
+        line["fleet_launches"] = {
+            how: {k: n for k, n in counts.items() if k.split("@")[0] == name}
+            for how, counts in fleet["launches"].items()}
+        line["serving_mesh_launches"] = {
+            key: [{k: n for k, n in rk["replayed"].items()
+                   if k.split("@")[0] == name} for rk in e["per_rank"]]
+            for key, e in serving_mesh["engines"].items()}
         lines.append(line)
     print(json.dumps({"fused_split": {
         key: [cell["split"] for cell in kernels[key]["per_layer"]]
@@ -2437,6 +3283,8 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(json.dumps({"async": dict(runtime, dataset=args.dataset, card=card,
                                     settings=SERVE,
                                     loads=ASYNC_LOADS[args.dataset])}))
+    print(json.dumps({"fleet": dict(fleet, card=card, settings=SERVE)}))
+    print(json.dumps({"serving_mesh": dict(serving_mesh, settings=SERVE)}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -11,17 +11,32 @@ Usage:
   python -m repro_torch.launch.serve_gcn --dataset pubmed --impl cuda \
       --runtime-async --deadline-ms 200 --qps 150 \
       --trace-json build/traces.json --metrics-prom build/metrics.prom
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve_gcn \
+      --dataset pubmed --impl cuda --mesh 2   # the serving mesh
+  python -m repro_torch.launch.serve_gcn --fleet-config fleet.json
 
-The port of ``repro.launch.serve_gcn`` (scenarios ``full``, ``node`` and
+The port of ``repro.launch.serve_gcn``: scenarios ``full``, ``node`` and
 ``batch``, the batch open-loop through the async runtime with
 ``--runtime-async``, traces, metrics and measured plan latencies with the
-``repro_torch.obs`` flags).  The serving mesh and the fleet are not
-ported yet.
+``repro_torch.obs`` flags, the serving mesh with ``--mesh N`` and the
+multi-tenant fleet with ``--fleet-config``.
+
+Under ``--mesh N`` every rank runs this command: the process group comes
+from the launcher's environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``, as ``torchrun`` sets them), over
+NCCL when every rank has a card of its own and over gloo otherwise (two
+ranks may share one card); a caller that joined a group before ``main``
+serves over that one.  Rank 0 runs the scenarios and prints the report;
+the other ranks follow its batched forwards.  A rank's collective waits
+at most ``MESH_TIMEOUT`` for the others, so a follower left idle that
+long by rank 0 errors out.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 from typing import Optional, Sequence
 
@@ -29,8 +44,12 @@ import numpy as np
 
 from repro_torch.serve import ServeEngine
 
+#: How long a rank of a process group joined for ``--mesh`` waits in one
+#: collective (a follower for rank 0's next forward) before it errors out.
+MESH_TIMEOUT = datetime.timedelta(minutes=10)
 
-def build_engine(args, device=None, feedback=None) -> ServeEngine:
+
+def build_engine(args, device=None, feedback=None, mesh=None) -> ServeEngine:
     growth = None
     if args.ladder_growth:
         growth = ("auto" if args.ladder_growth == "auto"
@@ -48,8 +67,32 @@ def build_engine(args, device=None, feedback=None) -> ServeEngine:
         precision=args.precision,
         accuracy_budget=args.accuracy_budget,
         feedback=feedback,
+        mesh=mesh,
         device=device,
     )
+
+
+def join_mesh(args, device=None):
+    """The ``--mesh`` data mesh over the launcher's process group (joined
+    here unless the caller joined one); returns ``(mesh, joined here)``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    joined = False
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                f"--mesh {args.mesh} runs one process per rank under a "
+                f"launcher that sets RANK and WORLD_SIZE (torchrun)")
+        world = int(os.environ.get("WORLD_SIZE", args.mesh))
+        on_cards = (device is None or torch.device(device).type == "cuda") \
+            and torch.cuda.device_count() >= world
+        dist.init_process_group("nccl" if on_cards else "gloo",
+                                timeout=MESH_TIMEOUT)
+        joined = True
+    return make_data_mesh(args.mesh, device=device), joined
 
 
 def make_tracer(args):
@@ -114,6 +157,94 @@ def run_async_scenario(engine: ServeEngine, requests, args) -> None:
         engine.feedback.save(args.plan_feedback)
         print(f"[obs] {len(engine.feedback)} measured plan latencies "
               f"saved to {args.plan_feedback}")
+    export_observability(args, tracer, rt.metrics)
+
+
+def run_fleet_scenario(args, device=None) -> None:
+    """Multi-tenant fleet serving from a ``--fleet-config`` JSON file.
+
+    The file follows :func:`repro_torch.fleet.fleet_from_config`'s schema
+    plus an optional ``loads`` section driving open-loop traffic::
+
+        {"servables": [{"kind": "gcn", "key": "cora", "dataset": "cora",
+                        "hidden_dim": 16, "fanout": 8},
+                       {"kind": "gcn", "key": "citeseer",
+                        "dataset": "citeseer", "spmm_impl": "cuda"}],
+         "capacity_units": 8.0,
+         "tenants": [{"name": "hot", "qps": 50, "burst": 8,
+                      "deadline_s": 0.2},
+                     {"name": "cold", "priority": 1, "deadline_s": 0.2}],
+         "weights": {"cora": 1.0, "citeseer": 1.0},
+         "loads": [{"tenant": "hot", "servable": "cora", "qps": 80,
+                    "requests": 64, "deadline_ms": 200},
+                   {"tenant": "cold", "servable": "citeseer", "qps": 5,
+                    "requests": 16, "deadline_ms": 200}]}
+
+    A servable of kind ``lm`` raises (ROADMAP A13).
+    """
+    import json
+
+    from repro_torch.fleet import (GcnServable, TenantLoad,
+                                   fleet_from_config, run_open_loop_mix)
+    from repro_torch.runtime.metrics import labeled
+
+    with open(args.fleet_config) as f:
+        config = json.load(f)
+    tracer = make_tracer(args)
+    rt = fleet_from_config(config, tracer=tracer, device=device)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for key in rt.manager.keys():
+        rt.manager.resolve(key)   # load + warm before the clock starts
+    print(f"[fleet] {rt.manager.loads} servables loaded in "
+          f"{time.perf_counter() - t0:.1f}s: {rt.manager.keys()}")
+
+    loads = []
+    for spec in config.get("loads", []):
+        sv = rt.manager.servable(spec["servable"])
+        if not isinstance(sv, GcnServable):
+            raise ValueError(
+                f"no payload generator for servable {spec['servable']!r}")
+        n = int(spec.get("requests", args.requests))
+        n_nodes = sv.engine.graph.n_nodes
+        payloads = [
+            rng.choice(n_nodes,
+                       size=rng.integers(1, args.seeds_per_request + 1),
+                       replace=False)
+            for _ in range(n)
+        ]
+        loads.append(TenantLoad(
+            tenant=spec["tenant"],
+            servable=spec["servable"],
+            payloads=payloads,
+            qps=float(spec["qps"]),
+            deadline_s=float(spec.get("deadline_ms", args.deadline_ms)) / 1e3,
+        ))
+
+    with rt:
+        wall = run_open_loop_mix(rt, loads, rng=np.random.default_rng(1))
+
+    snap = rt.metrics.snapshot()
+    c = snap["counters"]
+    print(
+        f"fleet: offered {c['submitted']} over {wall:.2f}s, "
+        f"completed {c['completed']}, shed rate "
+        f"{snap['derived']['shed_rate']:.3f} "
+        f"(quota={c['rejected_quota']} inflight={c['rejected_inflight']} "
+        f"queue={c['rejected_queue_full']} expired={c['shed_expired']}); "
+        f"SLO attainment {snap['derived']['slo_attainment']:.3f}; "
+        f"loads {rt.manager.loads} unloads {rt.manager.unloads}"
+    )
+    for load in loads:
+        t = load.tenant
+        met = c.get(labeled("slo_met", tenant=t), 0)
+        missed = c.get(labeled("slo_missed", tenant=t), 0)
+        quota = c.get(labeled("rejected_quota", tenant=t), 0)
+        e2e = snap["latency_ms"].get(labeled("e2e_s", tenant=t),
+                                     {"p50": 0.0, "p99": 0.0})
+        print(f"  tenant {t} -> {load.servable}: slo {met}/{met + missed} "
+              f"met, quota-shed {quota}, e2e p50 {e2e['p50']:.2f} ms "
+              f"p99 {e2e['p99']:.2f} ms")
     export_observability(args, tracer, rt.metrics)
 
 
@@ -191,31 +322,59 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
                          "measurements after --runtime-async")
     ap.add_argument("--mesh", type=int, default=1,
                     help="width of the data mesh to shard batched query "
-                         "chunks over (ROADMAP item A9b, not ported yet)")
+                         "chunks over (1 = no mesh); every rank of the "
+                         "launcher's process group runs this command, rank "
+                         "0 leads and prints")
     ap.add_argument("--fleet-config", default=None,
-                    help="multi-tenant fleet scenario (ROADMAP item A12, not "
-                         "ported yet)")
+                    help="JSON file describing a multi-tenant servable "
+                         "fleet (GCN servables + tenant policies + loads); "
+                         "runs the fleet scenario instead of the "
+                         "single-engine ones")
     args = ap.parse_args(argv)
 
-    if args.mesh > 1:
-        raise NotImplementedError(
-            "--mesh: sharding batched query chunks over ranks is ROADMAP "
-            "item A9b (the serving mesh), not ported yet")
     if args.fleet_config:
-        raise NotImplementedError(
-            "--fleet-config: the servable fleet is ROADMAP item A12, not "
-            "ported yet")
+        run_fleet_scenario(args, device=device)
+        return
 
+    mesh, joined = None, False
+    if args.mesh > 1:
+        mesh, joined = join_mesh(args, device=device)
+    try:
+        serve(args, device, mesh)
+    finally:
+        import torch.distributed as dist
+
+        # a forward that failed part-way has torn the group down already
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def serve(args, device, mesh) -> None:
+    """The single-engine scenarios; under a mesh rank 0 runs them and the
+    other ranks follow."""
+    leader = mesh is None or mesh.get_rank() == 0
     feedback = None
     if args.plan_feedback:
         from repro_torch.obs import PlanFeedback
 
         feedback = PlanFeedback.load(args.plan_feedback)
-        print(f"[obs] plan feedback loaded from {args.plan_feedback}: "
-              f"{len(feedback)} measured (bucket, plan) entries")
-    engine = build_engine(args, device=device, feedback=feedback)
+        if leader:
+            print(f"[obs] plan feedback loaded from {args.plan_feedback}: "
+                  f"{len(feedback)} measured (bucket, plan) entries")
+    engine = build_engine(args, device=device, feedback=feedback, mesh=mesh)
     t0 = time.perf_counter()
     built = engine.warmup(max_nodes=args.warmup_max_nodes or None)
+    if not leader:
+        engine.follow()
+        return
+    try:
+        report(args, engine, built, t0)
+    finally:
+        engine.stop_followers()
+
+
+def report(args, engine: ServeEngine, built: int, t0: float) -> None:
+    """Rank 0's scenarios and report, after warmup."""
     reg = engine.registry.stats
     plan = engine.batcher.plan
     impl_note = plan.effective_impl + (
@@ -223,7 +382,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> None:
     print(f"[warmup] {built} bucket executables compiled in "
           f"{time.perf_counter() - t0:.1f}s; ladder "
           f"{[(b.nodes, b.rows) for b in engine.batcher.ladder.entries]}; "
-          f"impl {impl_note}; device {engine.device}; "
+          f"impl {impl_note}; mesh data={args.mesh}; device {engine.device}; "
           f"registry builds={reg.builds} disk_hits={reg.disk_hits}")
     if args.precision != "f32":
         errs = {p: round(e, 5)

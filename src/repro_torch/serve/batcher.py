@@ -49,6 +49,25 @@ fused kernel.
 
 The top ladder entry is sized from the full graph's preprocessed operand,
 so any subgraph fits some bucket.
+
+With ``mesh=`` (a data mesh, ``launch.mesh.make_data_mesh``, over the whole
+default process group) a batch of ``b`` requests is cut by
+``dist.sharding.batch_spec(mesh, b)``: into ``b / n`` requests per rank
+when the ``n`` data ranks divide it, else replicated on every rank, as the
+reference constrains its coalesced operand.  The reference does so inside
+one program on one controller; the port runs a process per rank, so rank 0
+leads and the other ranks follow (:meth:`MicroBatcher.follow`): for each
+coalesced forward rank 0 broadcasts a header (bucket, batch, feature
+width, precision) and then scatters to each rank its own chunk's stacked
+inputs in one byte buffer; each rank replays the CUDA graph of its chunk;
+the chunks' seed rows are all-gathered outside the graph, and rank 0
+returns the per-request rows.  Every rank captures its chunk shapes at
+warmup.  A forward that fails part-way on any rank tears the process
+group down, so that the other ranks' collectives of that forward raise
+instead of waiting.  The mesh stays off the plan (as in the reference),
+so traces, the ledger and ``record_batch_dram`` see the batch as one
+unsharded forward, and the header, the scatter and the gather record
+nothing in ``LEDGER``.
 """
 
 from __future__ import annotations
@@ -63,6 +82,8 @@ import torch
 from repro_torch.core.sparse_formats import PAD_COL
 from repro_torch.device import resolve_device
 from repro_torch.dist.collectives import LEDGER
+from repro_torch.dist.sharding import _axes_size, batch_spec, spec_axes
+from repro_torch.dist.topology import axis_sizes
 from repro_torch.exec import SpmmOperands, SpmmPlan, plan_for_config, quant
 from repro_torch.exec.dispatch import execute_layer, record_spmm_dram
 from repro_torch.exec.fused import provide_column_slots, record_combination_dram
@@ -71,6 +92,10 @@ from repro_torch.models.gcn import GCNConfig, GCNGraph
 from repro_torch.serve.sampler import SampledSubgraph
 
 _SLOT_INPUTS = ("slot_group", "slot_start", "slot_ids")
+# The serving mesh's header: (op, bucket nodes, bucket rows, padded batch,
+# feature width, precision index); op _RUN or _STOP.
+_RUN, _STOP = 1, 0
+_ALIGN = 16   # byte alignment of each input in a chunk's buffer
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -179,7 +204,14 @@ class _CapturedForward:
     The buffers are filled with padding (PAD_COL columns, empty slot
     chunks) and the caller's parameters, the forward runs once on a side
     stream (the kernel library loads and the kernels' attributes are set
-    outside the capture), and is then captured into ``pool``.
+    outside the capture), and is then captured into ``pool``.  A batcher
+    passes one ``side`` stream for all its captures: cuBLAS keeps a
+    workspace per stream it ran on for the life of the process, so a new
+    pool stream per capture would leave one more workspace behind at each
+    reload of a fleet servable.  The capture
+    is ``thread_local``: a fleet captures a servable's rungs while its
+    worker thread replays another servable's graphs and reads them back,
+    which a global capture would refuse (and be broken by).
 
     The kernel wrappers count their launches once, at the capture; a
     replay runs the same launches again without them.  ``launches`` keeps
@@ -189,20 +221,21 @@ class _CapturedForward:
     """
 
     def __init__(self, fwd: Callable, params, specs: dict,
-                 device: torch.device, pool):
+                 device: torch.device, pool, side=None):
         self.params = {name: {k: torch.as_tensor(v, device=device).clone()
                               for k, v in layer.items()}
                        for name, layer in params.items()}
         self.inputs = {name: torch.full(shape, fill, dtype=dtype, device=device)
                        for name, (shape, dtype, fill) in specs.items()}
-        side = torch.cuda.Stream(device)
+        side = side or torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             fwd(self.params, self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
         before = dict(fv.PRECISION_LAUNCHES)
-        with torch.cuda.graph(self.graph, pool=pool):
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
             self.out = fwd(self.params, self.inputs)
         self.launches = {k: n - before[k]
                          for k, n in fv.PRECISION_LAUNCHES.items()
@@ -249,10 +282,6 @@ class MicroBatcher:
         device=None,
         device_model=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharding bucket chunks over ranks is ROADMAP item A9b "
-                "(the serving mesh), not ported yet")
         self.cfg = cfg
         self.ladder = ladder
         self.max_batch = max_batch
@@ -286,7 +315,28 @@ class MicroBatcher:
         self._bucket_plans: Dict[Tuple[Bucket, int], SpmmPlan] = {}
         self._layer_plans: Dict[Tuple[Bucket, int], List[SpmmPlan]] = {}
         self._pool = None          # the captures' CUDA graph memory pool
+        self._side = None          # the captures' warm-up stream, kept
         self._run_lock = threading.Lock()
+        # The serving mesh (None: every forward on this process).  Kept off
+        # the plan, as in the reference: chunks shard at request
+        # granularity, not through the host-side row split of
+        # exec.sharded.  ``mesh_runs`` counts this rank's chunk replays.
+        self.mesh = mesh
+        self.mesh_runs = {"sharded": 0, "replicated": 0}
+        # set once the followers left follow(): stopped, or the group torn
+        # down after a forward failed part-way
+        self._followers_stopped = False
+        if mesh is not None:
+            import torch.distributed as dist
+
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "a serving mesh needs an initialized process group, one "
+                    "process per rank (launch.mesh.make_data_mesh)")
+            if mesh.size() != dist.get_world_size():
+                raise ValueError(
+                    f"the serving mesh must span the process group: "
+                    f"{mesh.size()} of {dist.get_world_size()} ranks")
 
     def set_bucket_precision(self, bucket: Bucket, precision: str) -> None:
         """Pin one rung's storage precision (call before the rung is built:
@@ -605,9 +655,11 @@ class MicroBatcher:
             if self.device.type == "cuda":
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
+                if self._side is None:
+                    self._side = torch.cuda.Stream(self.device)
                 specs = self.input_specs(bucket, batch, feature_dim)
                 exe = _CapturedForward(fwd, params, specs, self.device,
-                                       self._pool)
+                                       self._pool, self._side)
             else:
                 exe = _EagerForward(fwd)
             self.compiles += 1
@@ -616,7 +668,8 @@ class MicroBatcher:
 
     def clear_executables(self) -> int:
         """Drop every executable, with its graph and static buffers, and
-        the graph memory pool; returns how many were dropped.
+        the graph memory pool (the warm-up stream stays for the next
+        captures); returns how many were dropped.
         ``compiles`` keeps counting monotonically, so re-warming after a
         reload is visible to the zero-builds assertions."""
         dropped = len(self._executables)
@@ -635,7 +688,9 @@ class MicroBatcher:
         """Build the (bucket x batch) grid; returns executables built.
 
         ``max_nodes`` skips buckets above a node budget (the full-graph rung
-        of a huge graph at batch 8 is rarely a real serving shape).
+        of a huge graph at batch 8 is rarely a real serving shape).  Under
+        a mesh each rank builds the chunk a batch gives it
+        (:meth:`chunking`), so no rank builds one while serving.
         """
         built = 0
         for bucket in self.ladder.entries:
@@ -643,9 +698,34 @@ class MicroBatcher:
                 continue
             for b in batch_sizes or self.batch_ladder():
                 before = self.compiles
-                self.executable(params, bucket, b, feature_dim)
+                self.executable(params, bucket, self.chunking(b)[1],
+                                feature_dim)
                 built += self.compiles - before
         return built
+
+    # ------------------------------------------------------------------
+    # Stacking and running
+    # ------------------------------------------------------------------
+
+    def chunking(self, batch: int) -> Tuple[int, int]:
+        """``(chunks, requests per chunk)`` of a padded batch: its
+        ``batch_spec`` over the mesh splits it into one chunk per shard,
+        or it stays one chunk (no mesh, or replicated on every rank)."""
+        if self.mesh is None:
+            return 1, batch
+        n = _axes_size(self.mesh, spec_axes(batch_spec(self.mesh, batch)))
+        return n, batch // n
+
+    def _chunk_of(self, rank: int, batch: int) -> int:
+        """The chunk rank ``rank`` replays: its row-major index over the
+        axes the batch is sharded on (0 when replicated)."""
+        sizes = axis_sizes(self.mesh)
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         (self.mesh.mesh == rank).nonzero()[0].tolist()))
+        k = 0
+        for a in spec_axes(batch_spec(self.mesh, batch)):
+            k = k * sizes[a] + coord[a]
+        return k
 
     def _stack_slots(self, reqs: List[PaddedRequest], bucket: Bucket,
                      specs: dict) -> Dict[str, torch.Tensor]:
@@ -668,36 +748,227 @@ class MicroBatcher:
                                   ("slot_ids", ids, 0)):
             shape, dtype, _ = specs[name]
             t = torch.full(shape, tail, dtype=dtype)
-            flat = torch.from_numpy(np.concatenate(parts).astype(np.int32))
-            t[: flat.numel()] = flat
+            if parts:
+                flat = torch.from_numpy(
+                    np.concatenate(parts).astype(np.int32))
+                t[: flat.numel()] = flat
             out[name] = t
         return out
 
+    def _stack(self, reqs: List[PaddedRequest], bucket: Bucket, chunks: int,
+               chunk: int, feature_dim: int) -> Dict[str, torch.Tensor]:
+        """The stacked inputs of ``chunks`` chunks of ``chunk`` requests
+        each, ``name -> (chunks,) + input_specs shape``: request ``i`` in
+        chunk ``i // chunk``, slot ``i % chunk``, the rest padding."""
+        specs = self.input_specs(bucket, chunk, feature_dim)
+        out = {}
+        for name, (shape, dtype, fill) in specs.items():
+            if name in _SLOT_INPUTS:
+                continue
+            t = torch.full((chunks,) + shape, fill, dtype=dtype)
+            for i, r in enumerate(reqs):
+                t[i // chunk, i % chunk] = torch.as_tensor(getattr(r, name))
+            out[name] = t
+        if self.uses_slots(bucket, feature_dim):
+            per_chunk = [self._stack_slots(reqs[k * chunk:(k + 1) * chunk],
+                                           bucket, specs)
+                         for k in range(chunks)]
+            for name in _SLOT_INPUTS:
+                out[name] = torch.stack([p[name] for p in per_chunk])
+        return out
+
     def run(self, params, reqs: List[PaddedRequest]) -> List[np.ndarray]:
-        """Run one coalesced forward; returns per-request seed logits."""
+        """Run one coalesced forward; returns per-request seed logits.
+        Under a mesh only rank 0 runs it, the others :meth:`follow`."""
         if not reqs:
             return []
         bucket = reqs[0].bucket
         if any(r.bucket != bucket for r in reqs):
             raise ValueError("run() requires a single-bucket batch")
         batch = self.pad_batch(len(reqs))
-        pad = batch - len(reqs)
         feature_dim = reqs[0].feats.shape[1]
-        specs = self.input_specs(bucket, batch, feature_dim)
-
-        def stack(field: str, fill) -> torch.Tensor:
-            arrs = [torch.as_tensor(getattr(r, field)) for r in reqs]
-            if pad:
-                arrs.extend([torch.full_like(arrs[0], fill)] * pad)
-            return torch.stack(arrs)
-
-        inputs = {name: stack(name, fill)
-                  for name, (_, _, fill) in specs.items()
-                  if name not in _SLOT_INPUTS}
-        if self.uses_slots(bucket, feature_dim):
-            inputs.update(self._stack_slots(reqs, bucket, specs))
+        chunks, chunk = self.chunking(batch)
+        inputs = self._stack(reqs, bucket, chunks, chunk, feature_dim)
         with self._run_lock:
-            exe = self.executable(params, bucket, batch, feature_dim)
-            out = exe(params, inputs)
+            if self.mesh is None:
+                out = self.executable(params, bucket, batch, feature_dim)(
+                    params, {k: v[0] for k, v in inputs.items()})
+            else:
+                out = self._lead(params, bucket, batch, feature_dim, inputs)
             self.calls += 1
         return [out[i, : r.n_seeds] for i, r in enumerate(reqs)]
+
+    # ------------------------------------------------------------------
+    # The serving mesh: rank 0 leads, the other ranks follow
+    # ------------------------------------------------------------------
+
+    def _comm_device(self) -> torch.device:
+        """Where the mesh's messages live: host memory for gloo, this
+        rank's card for NCCL (which takes no host tensors)."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_device
+
+        if dist.get_backend() == "nccl":
+            return mesh_device(self.mesh)
+        return torch.device("cpu")
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t = t.to(self._comm_device())
+        dist.broadcast(t, src=0)
+        return t.cpu()
+
+    def _layout(self, bucket: Bucket, chunk: int,
+                feature_dim: int) -> Tuple[List[tuple], int]:
+        """``(name, shape, dtype, offset, nbytes)`` of each input of one
+        chunk in its byte buffer, every offset a multiple of ``_ALIGN``
+        bytes, and the buffer's size."""
+        out, off = [], 0
+        for name, (shape, dtype, _) in self.input_specs(
+                bucket, chunk, feature_dim).items():
+            n = int(np.prod(shape)) * dtype.itemsize
+            out.append((name, tuple(shape), dtype, off, n))
+            off += _round_up(n, _ALIGN)
+        return out, off
+
+    def _scatter(self, bucket: Bucket, batch: int, feature_dim: int,
+                 inputs: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """This rank's chunk of a forward's inputs: rank 0 packs each
+        chunk (``inputs``, stacked by :meth:`_stack`) into one byte buffer
+        and scatters to every rank the buffer of the chunk it replays."""
+        import torch.distributed as dist
+
+        chunks, chunk = self.chunking(batch)
+        layout, size = self._layout(bucket, chunk, feature_dim)
+        comm = self._comm_device()
+        parts = None
+        if inputs is not None:
+            packed = []
+            for k in range(chunks):
+                buf = torch.zeros(size, dtype=torch.uint8)
+                for name, _, _, off, n in layout:
+                    buf[off:off + n] = inputs[name][k].reshape(-1).view(
+                        torch.uint8)
+                packed.append(buf.to(comm))
+            parts = [packed[self._chunk_of(r, batch)]
+                     for r in range(dist.get_world_size())]
+        mine = torch.empty(size, dtype=torch.uint8, device=comm)
+        dist.scatter(mine, parts, src=0)
+        mine = mine.cpu()
+        return {name: mine[off:off + n].view(dtype).reshape(shape)
+                for name, shape, dtype, off, n in layout}
+
+    def _torn_down(self) -> None:
+        """After a forward failed part-way on this rank: destroy the
+        process group, so that the other ranks' collectives of that
+        forward raise rather than wait for this rank (a stop header would
+        land in a collective of another kind)."""
+        import torch.distributed as dist
+
+        self._followers_stopped = True
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def _lead(self, params, bucket: Bucket, batch: int, feature_dim: int,
+              inputs: Dict[str, torch.Tensor]) -> np.ndarray:
+        """Rank 0's forward: the header, the chunks' scatter, then its own
+        chunk's replay and the gather."""
+        import torch.distributed as dist
+
+        if self._followers_stopped:
+            raise RuntimeError("the followers were stopped, or a failed "
+                               "forward tore the process group down")
+        if dist.get_rank() != 0:
+            raise RuntimeError("under a serving mesh rank 0 leads; the "
+                               "other ranks call follow()")
+        precision = self.precision_for_bucket(bucket)
+        try:
+            self._broadcast(torch.tensor(
+                [_RUN, bucket.nodes, bucket.rows, batch, feature_dim,
+                 quant.PRECISIONS.index(precision)], dtype=torch.int64))
+            mine = self._scatter(bucket, batch, feature_dim, inputs)
+            return self._replay(params, bucket, batch, feature_dim, mine)
+        except BaseException:
+            self._torn_down()
+            raise
+
+    def _replay(self, params, bucket: Bucket, batch: int, feature_dim: int,
+                inputs: Dict[str, torch.Tensor]) -> Optional[np.ndarray]:
+        """This rank's chunk through its executable; a sharded batch's
+        chunks are all-gathered, and rank 0 gets them in chunk order."""
+        import torch.distributed as dist
+
+        chunks, chunk = self.chunking(batch)
+        out = self.executable(params, bucket, chunk, feature_dim)(
+            params, inputs)
+        if chunks == 1:
+            self.mesh_runs["replicated"] += 1
+            return out
+        self.mesh_runs["sharded"] += 1
+        mine = torch.from_numpy(np.ascontiguousarray(out)).to(
+            self._comm_device())
+        world = dist.get_world_size()
+        gathered = torch.empty((world * chunk,) + tuple(mine.shape[1:]),
+                               dtype=mine.dtype, device=mine.device)
+        dist.all_gather_into_tensor(gathered, mine)
+        if dist.get_rank() != 0:
+            return None
+        gathered = gathered.cpu().numpy()
+        first = {}
+        for r in range(world):
+            first.setdefault(self._chunk_of(r, batch), r)
+        return np.concatenate([gathered[first[k] * chunk:
+                                        (first[k] + 1) * chunk]
+                               for k in range(chunks)])
+
+    def follow(self, params) -> int:
+        """Serve as a follower rank until rank 0 stops the followers:
+        take each forward's header and this rank's chunk, replay it and
+        join the gather.  Returns the forwards followed.  A failure
+        (rank 0's group torn down, or this rank's own) tears this rank's
+        group down too and raises."""
+        import torch.distributed as dist
+
+        if self.mesh is None or dist.get_rank() == 0:
+            raise RuntimeError("follow() is for the ranks other than 0 of a "
+                               "serving mesh")
+        followed = 0
+        try:
+            while True:
+                header = self._broadcast(torch.zeros(6, dtype=torch.int64))
+                op, nodes, rows, batch, feature_dim, prec = header.tolist()
+                if op == _STOP:
+                    return followed
+                bucket = Bucket(nodes, rows)
+                if bucket not in self.ladder.entries:
+                    raise RuntimeError(f"rank 0 ran {bucket}, which is not "
+                                       f"on this rank's ladder")
+                if quant.PRECISIONS[prec] != self.precision_for_bucket(bucket):
+                    raise RuntimeError(
+                        f"rank 0 runs {bucket} at {quant.PRECISIONS[prec]}, "
+                        f"this rank at {self.precision_for_bucket(bucket)}")
+                inputs = self._scatter(bucket, batch, feature_dim)
+                with self._run_lock:
+                    self._replay(params, bucket, batch, feature_dim, inputs)
+                    self.calls += 1
+                followed += 1
+        except BaseException:
+            self._torn_down()
+            raise
+
+    def stop_followers(self) -> None:
+        """Rank 0 releases the followers from :meth:`follow`
+        (idempotent, and nothing to do once a failed forward tore the
+        group down); a forward after it raises."""
+        import torch.distributed as dist
+
+        if self.mesh is None or self._followers_stopped \
+                or not dist.is_initialized() or dist.get_rank() != 0:
+            return
+        with self._run_lock:
+            self._broadcast(torch.tensor([_STOP, 0, 0, 0, 0, 0],
+                                         dtype=torch.int64))
+            self._followers_stopped = True

@@ -17,6 +17,13 @@ Every path records wall-clock latency per request; ``latency_report``
 summarizes p50/p99 and throughput (requests/s plus "tok-equivalent"
 seed-logits/s — one answered seed node is the serving unit of work).
 The engine runs on the card unless given ``device="cpu"``.
+
+With ``mesh=`` (the serving mesh, ``serve.batcher``) every rank builds the
+same engine and warms it; rank 0 then owns ``query``, ``query_batch``,
+``full_forward`` and :meth:`ServeEngine.runtime`, while every other rank
+calls :meth:`ServeEngine.follow` until rank 0 calls
+:meth:`ServeEngine.stop_followers`.  ``full_forward`` stays unsharded, on
+rank 0 alone, as the reference's (the mesh is not on the plan).
 """
 
 from __future__ import annotations
@@ -407,9 +414,23 @@ class ServeEngine:
                             max_wait_s=None)
 
     def servable(self, key: Optional[str] = None, **kw):
-        raise NotImplementedError(
-            "servable(): the servable fleet is ROADMAP item A12, not ported "
-            "yet")
+        """Wrap this engine as a fleet servable (``repro_torch.fleet``);
+        ``key`` defaults to the graph's content hash, so two engines over
+        the same preprocessed graph collide deliberately."""
+        from repro_torch.fleet.servable import GcnServable
+
+        return GcnServable(self, key=key, **kw)
+
+    def follow(self) -> int:
+        """A follower rank of the serving mesh: replay this rank's chunk of
+        every coalesced forward rank 0 runs, until it stops the followers;
+        returns the forwards followed."""
+        return self.batcher.follow(self.params)
+
+    def stop_followers(self) -> None:
+        """Rank 0 of the serving mesh releases the followers (idempotent;
+        nothing without a mesh)."""
+        self.batcher.stop_followers()
 
     # ------------------------------------------------------------------
 

@@ -43,7 +43,8 @@ def _entry(module, function, rank, world, directory, args):
             rank, world, *args)
         with open(os.path.join(directory, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(out, fh)
-        dist.destroy_process_group()
+        if dist.is_initialized():     # the function may have torn it down
+            dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(directory, f"rank{rank}.err"), "w") as fh:
             fh.write(traceback.format_exc())

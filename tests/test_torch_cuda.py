@@ -752,3 +752,131 @@ def test_cuda_runtime_capture_under_span_opens_no_span(cuda_device, tmp_path):
     assert len(trace.find("execute_layer")) == card.cfg.n_layers
     replayed = exe(card.params, {k: v.cpu() for k, v in inputs.items()})
     assert rel_max_err(torch.as_tensor(replayed), eager) <= 1e-5
+
+
+def _fleet_engines(device, tmp_path):
+    """Two servables on the card over the toy graph (f32 unfused, and
+    fused int8 with other weights), each with its CPU twin."""
+    f32 = _serve_engines(device, tmp_path / "a", "f32", None, seed=1)
+    int8 = _serve_engines(device, tmp_path / "b", "int8", True, seed=2)
+    return {"f32": f32, "int8": int8}
+
+
+def _counted_loads(manager, loads):
+    """Wrap each servable's ``load`` to log (key, thread, graphs built)."""
+    import threading
+
+    for key in manager.keys():
+        sv = manager.servable(key)
+        load = sv.load
+
+        def counted(sv=sv, load=load, key=key):
+            before = sv.engine.compile_count
+            load()
+            loads.append((key, threading.current_thread().name,
+                          sv.engine.compile_count - before))
+
+        sv.load = counted
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_reloads_on_the_worker_while_submitting(cuda_device,
+                                                           tmp_path):
+    """Capacity for one of two servables and two submitting threads: the
+    servables unload and reload (capturing their grids) on the submitting
+    threads and on the worker, which replays the other servable's graphs
+    meanwhile.  Every answer agrees with the CPU engine's, every capture
+    happens inside a load (each load captures its whole grid), and no
+    batch fails."""
+    import threading
+
+    from repro_torch.fleet import FleetManager, FleetRuntime
+
+    engines = _fleet_engines(cuda_device, tmp_path)
+    mgr = FleetManager(capacity_units=1.0)
+    for key, (card, _) in engines.items():
+        mgr.register(card.servable(key=key))
+    loads = []
+    _counted_loads(mgr, loads)
+    reqs = _serve_requests(32, seed=17)
+    want = {k: [cpu.query(s) for s in reqs] for k, (_, cpu) in
+            engines.items()}
+    subs = {}
+    with FleetRuntime(mgr, capacity=128) as rt:
+        def submit(part):
+            for i in part:
+                for key in ("f32", "int8") if i % 2 else ("int8", "f32"):
+                    subs[(key, i)] = rt.submit(key, reqs[i])
+
+        threads = [threading.Thread(target=submit, args=(range(k, 32, 2),),
+                                    name=f"submit-{k}") for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+            assert not t.is_alive()
+        got = {k: r.future.result(timeout=300.0) for k, r in subs.items()}
+        worker = rt.loop.name
+    for key, (card, _) in engines.items():
+        _assert_answers_agree([got[(key, i)] for i in range(32)],
+                              want[key], key)
+        grids = [n for k, _, n in loads if k == key]
+        assert len(set(grids)) == 1 and grids[0] > 0
+        assert card.compile_count == sum(grids)
+    assert {name for _, name, _ in loads} >= {worker}
+    assert mgr.loads == len(loads) >= 4 and mgr.unloads >= 3
+    m = rt.metrics.snapshot()["counters"]
+    assert m["completed"] == 64 and m["failed"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_unload_returns_graph_memory(cuda_device, tmp_path):
+    """Three unload/reload cycles of one servable: after each unload the
+    device memory held is back within 16 MiB of the first unload's level,
+    and each reload answers as before."""
+    import gc
+
+    card, cpu = _serve_engines(cuda_device, tmp_path, "f32", None)
+    sv = card.servable(key="toy")
+    reqs = _serve_requests(8, seed=5)
+    want = [cpu.query(s) for s in reqs]
+    levels = []
+    for _ in range(3):
+        sv.load()
+        _assert_answers_agree([card.query(s) for s in reqs], want, "f32")
+        sv.unload()
+        gc.collect()
+        torch.cuda.synchronize()
+        levels.append(torch.cuda.memory_allocated(cuda_device))
+    assert abs(levels[2] - levels[0]) <= 16 * 2 ** 20, levels
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_two_servables_graphs_alive_together(cuda_device,
+                                                        tmp_path):
+    """Room for both: two servables' graphs stay captured side by side,
+    batches alternate between them through one runtime, both replay, and
+    nothing unloads or captures after the loads."""
+    from repro_torch.fleet import FleetManager, FleetRuntime
+    from repro_torch.runtime import VirtualClock
+
+    engines = _fleet_engines(cuda_device, tmp_path)
+    mgr = FleetManager(capacity_units=2.0)
+    for key, (card, _) in engines.items():
+        mgr.register(card.servable(key=key))
+        mgr.resolve(key)
+    built = {k: card.compile_count for k, (card, _) in engines.items()}
+    replays0 = {k: sum(e.replays for e in card.batcher._executables.values())
+                for k, (card, _) in engines.items()}
+    reqs = _serve_requests(16, seed=23)
+    rt = FleetRuntime(mgr, capacity=64, clock=VirtualClock())
+    subs = [(key, i, rt.submit(key, s)) for i, s in enumerate(reqs)
+            for key in ("f32", "int8")]
+    rt.drain()
+    for key, (card, cpu) in engines.items():
+        got = [r.future.result(timeout=0) for k, _, r in subs if k == key]
+        _assert_answers_agree(got, [cpu.query(s) for s in reqs], key)
+        replays = sum(e.replays for e in card.batcher._executables.values())
+        assert replays > replays0[key]
+        assert card.compile_count == built[key]
+    assert mgr.loads == 2 and mgr.unloads == 0

@@ -19,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+import repro.fleet as JF
 import repro.obs as JO
 import repro.runtime as JR
+import repro_torch.fleet as TF
 import repro_torch.obs as TO
 import repro_torch.runtime as TR
 from repro.core import preprocess as j_preprocess
@@ -48,6 +50,7 @@ from repro_torch.plan import autoplan as tauto
 from repro_torch.plan import cost as tcost
 from repro_torch.serve.batcher import Bucket as TBucket
 
+import _fleet_cases as fc
 import _serve_parity as sp
 
 SIDES = {"reference": (JO, JR, JBucket), "port": (TO, TR, TBucket)}
@@ -550,3 +553,102 @@ def test_ledger_listeners_and_mute():
     assert TO.install_ledger_listener() is False
     assert len([f for f in T_LEDGER.listeners
                 if f.__module__ == "repro_torch.obs.trace"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# fleet: traces, tenant attribution, per-method ACLs (tests/test_obs.py)
+# ---------------------------------------------------------------------------
+
+FLEETS = {"reference": (JO, JR, JF), "port": (TO, TR, TF)}
+
+
+def _fleet_tenant_trace(O, R, F):
+    tracer = O.Tracer(clock=R.VirtualClock())
+    clock, sv, rt, _ = fc.fleet(
+        F, R, fc.fake_servable(F, R)("gcn"), tracer=tracer,
+        tenants=[F.TenantPolicy("hot", deadline_s=1.0)])
+    tracer.clock = rt.clock
+    req = rt.submit("gcn", [1, 2], tenant="hot")
+    rt.drain()
+    return [fc.outcome(req), _dicts(tracer.drain()), rt.metrics.snapshot()]
+
+
+def _fleet_acl(O, R, F):
+    tracer = O.Tracer(clock=R.VirtualClock())
+    clock, sv, rt, _ = fc.fleet(
+        F, R, fc.fake_servable(F, R)("gcn"), tracer=tracer,
+        tenants=[F.TenantPolicy("locked", qps=10.0, burst=2.0,
+                                allowed_methods=("other",))])
+    tracer.clock = rt.clock
+    out = [fc.verdict(rt.submit, "gcn", [1], tenant="locked")]
+    return out + [_dicts(tracer.drain()), rt.tenants.state("locked"),
+                  rt.metrics.snapshot()]
+
+
+@pytest.mark.parametrize("script", [_fleet_tenant_trace, _fleet_acl],
+                         ids=["tenant_and_servable", "acl_before_quota"])
+def test_fleet_traces_match_reference(script):
+    """The fleet cases of ``tests/test_obs.py``: the tenant and servable
+    on the root span of a served request; an ACL denial that raises,
+    counts ``rejected_acl`` (fleet-wide and per tenant and servable),
+    finishes its trace with that status and burns no token — the same
+    transcripts as the reference's."""
+    want = script(*FLEETS["reference"])
+    got = script(*FLEETS["port"])
+    assert got == want
+    if script is _fleet_tenant_trace:
+        [trace] = got[1]
+        root = trace["spans"][0]["attributes"]
+        assert trace["status"] == "ok" and root["servable"] == "gcn"
+        assert root["tenant"] == "hot" and root["priority"] == 0
+        names = {s["name"] for s in trace["spans"]}
+        assert {"admission", "execute"} <= names
+    else:
+        assert got[0] == "MethodDeniedError"
+        assert got[1][0]["status"] == "rejected_acl"
+        assert got[2] == {"tokens": 2.0, "inflight": 0}
+        c = got[3]["counters"]
+        assert c["rejected_acl"] == 1 and c["submitted"] == 1
+        assert c[TR.labeled("rejected_acl", tenant="locked",
+                            servable="gcn")] == 1
+
+
+def _gcn_fleet_traces(engine, O, R, F):
+    """A traced fleet over one GcnServable: three tenants' requests on a
+    ``VirtualClock``, a fixed 10 ms estimate; the drained trace dicts."""
+    clock = R.VirtualClock(start=50.0)
+    tracer = O.Tracer(clock=clock)
+    mgr = F.FleetManager(capacity_units=4.0, clock=clock)
+    sv = mgr.register(engine.servable(key="toy"))
+    sv._estimator = R.FixedEstimator(0.01)
+    mgr.resolve("toy")
+    rt = F.FleetRuntime(mgr, clock=clock, capacity=64, tracer=tracer)
+    for i, seeds in enumerate(sp.requests(9, seed=2)):
+        rt.submit("toy", seeds, tenant=("a", "b", None)[i % 3],
+                  deadline_s=float(1 + i % 2))
+        clock.advance(0.05)
+    sp.drive(rt)
+    rt.shutdown()
+    return _dicts(tracer.drain())
+
+
+@pytest.mark.parametrize("impl,precision,fused", [
+    ("reference", "f32", None), ("cuda", "bf16", None)],
+    ids=["reference-f32", "cuda-bf16"])
+def test_gcn_fleet_traces_match_reference(impl, precision, fused):
+    """A fleet's batches are traced through ``engine_batch_info`` with the
+    servable on the execute span, and ledgered by ``record_batch_dram``:
+    the same trace trees as the reference's, after the impl-name
+    mapping."""
+    jeng = sp.reference_engine(impl, precision, fused)
+    teng = sp.port_engine(impl, precision, fused)
+    want = _port_names(_gcn_fleet_traces(jeng, JO, JR, JF))
+    got = _gcn_fleet_traces(teng, TO, TR, TF)
+    assert got == want
+    served = [t for t in got if t["status"] == "ok"]
+    assert served
+    for t in served:
+        [ex] = [s for s in t["spans"] if s["name"] == "execute"]
+        assert ex["attributes"]["servable"] == "toy"
+        assert any(e["attributes"]["kind"] == "spmm_dram"
+                   for e in ex["events"])

@@ -18,6 +18,7 @@ closure built and counted under the CUDA graph's key.
 
 import dataclasses
 import functools
+import json
 import os
 import pickle
 import subprocess
@@ -712,8 +713,9 @@ def test_port_registry_ignores_reference_artifacts(tmp_path):
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "A9"), ({"feedback": object()}, "A11")])
 def test_unported_engine_options_raise(kw, item):
-    """``mesh=`` (A9b) still raises; ``feedback=`` (A11) is ported: the
-    engine keeps the store and hands it to its batcher."""
+    """``mesh=`` (A9b) is ported: outside a process group it raises (the
+    serving mesh runs one process per rank); ``feedback=`` (A11) is
+    ported: the engine keeps the store and hands it to its batcher."""
     _, t_adj, feats = _toy()
     _, tcfg = _cfgs()
     if item == "A11":
@@ -721,15 +723,16 @@ def test_unported_engine_options_raise(kw, item):
         assert engine.feedback is kw["feedback"]
         assert engine.batcher.feedback is kw["feedback"]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match="process group"):
         TEngine(t_adj, feats, tcfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("method,item", [("runtime", "A10"),
                                          ("servable", "A12")])
 def test_unported_engine_methods_raise(method, item):
-    """``servable()`` (A12) still raises; ``runtime()`` (A10) is ported
-    and returns a runtime over this engine."""
+    """``runtime()`` (A10) and ``servable()`` (A12) are ported: a runtime
+    over this engine, and a fleet servable wrapping it."""
+    from repro_torch.fleet import GcnServable
     from repro_torch.runtime import ServeRuntime
 
     engine = _port_engine()
@@ -739,8 +742,10 @@ def test_unported_engine_methods_raise(method, item):
         assert rt.graph_key == engine.graph_key and rt.queue.capacity == 4
         rt.shutdown()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(engine, method)()
+    sv = getattr(engine, method)()
+    assert isinstance(sv, GcnServable) and sv.engine is engine
+    assert sv.key == engine.graph_key
+    assert getattr(engine, method)(key="k").key == "k"
 
 
 def test_forward_step_auto_plan_raises():
@@ -760,9 +765,12 @@ def toy_dataset(monkeypatch):
 @pytest.mark.parametrize("flags,item", [(["--runtime-async"], "A10"),
                                         (["--fleet-config", "f.json"], "A12"),
                                         (["--mesh", "2"], "A9b")])
-def test_cli_unported_scenarios_raise(toy_dataset, capsys, flags, item):
-    """``--fleet-config`` (A12) and ``--mesh`` (A9b) still raise;
-    ``--runtime-async`` (A10) is ported and serves the batch open-loop."""
+def test_cli_unported_scenarios_raise(toy_dataset, capsys, tmp_path,
+                                      monkeypatch, flags, item):
+    """``--runtime-async`` (A10) serves the batch open-loop;
+    ``--fleet-config`` (A12) serves a GCN-only fleet; ``--mesh`` (A9b)
+    outside a launcher raises, naming what the launcher sets (the mesh
+    itself runs in ``tests/test_torch_serve_mesh.py``)."""
     if item == "A10":
         # batches of one close as they arrive, and no deadline can lapse
         serve_gcn.main(["--dataset", "toy", "--reduced", "--requests", "8",
@@ -773,7 +781,22 @@ def test_cli_unported_scenarios_raise(toy_dataset, capsys, flags, item):
         assert "async: offered 8 @ 1000 qps, completed 8, shed 0" in out
         assert "[post-warmup compiles] 0 " in out
         return
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "A12":
+        monkeypatch.chdir(tmp_path)
+        with open("f.json", "w") as fh:
+            json.dump({"servables": [{"kind": "gcn", "key": "toy",
+                                      "dataset": "toy", "hidden_dim": 8,
+                                      "fanout": 4, "max_batch": 4}],
+                       "loads": [{"tenant": "t", "servable": "toy",
+                                  "qps": 1000, "requests": 6,
+                                  "deadline_ms": 60000}]}, fh)
+        serve_gcn.main(flags, device="cpu")
+        out = capsys.readouterr().out
+        assert "[fleet] 1 servables loaded" in out
+        assert "fleet: offered 6 over " in out and "completed 6," in out
+        return
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="RANK"):
         serve_gcn.main(["--dataset", "toy", "--reduced", *flags], device="cpu")
 
 

@@ -143,8 +143,8 @@ Phases, in order; any failure exits non-zero:
    Cora (fused int8) and CiteSeer (``cuda`` bf16) — in a capacity of the
    dataset's cost units + 1, so at most two are resident and traffic
    forces unloads and reloads (each a capture of the servable's grid).
-   The tenants of ``examples/fleet_smoke.json`` (its LM entries wait for
-   ROADMAP A13): cold (priority 1, 400 ms) at 5 req/s on every servable
+   The tenants of ``examples/fleet_smoke.json`` (the file as a whole,
+   its LM included, runs in phase 11): cold (priority 1, 400 ms) at 5 req/s on every servable
    and hot (20 req/s quota, burst 4, 32 in flight) at 80 req/s on the
    dataset, open loop for 40 s through ``fleet.run_open_loop_mix`` with
    tracing, then the cold streams alone for 40 s.  Checks: every
@@ -179,12 +179,33 @@ Phases, in order; any failure exits non-zero:
    (mesh width 1) and their ledger events those of an unmeshed engine.
    Requests/s is printed as two ranks on one card, not a multi-GPU
    figure.
+11. The LM/SSM models (``repro_torch.models.lm``; no TPU kernel lies on
+   this path, its matrix products are ``torch.matmul`` / ``einsum``),
+   with bf16 GEMMs reducing in f32 as the reference's do: (a) the ten
+   reduced archs on the card against the CPU from the same weights, the
+   forward logits and 8 decode steps with the cross caches filled,
+   within the CPU parity tests' bars (2e-2 of max|logits|; jamba 4e-2,
+   xlstm 1e-1); (b) one block of each mixer at its arch's published
+   widths (batch 2 x seq 16; cross-attention over 1,601 image tokens,
+   seamless's encoder layer and ``attnx`` over 1,024 frames), card
+   against CPU within 2e-2; (c) qwen3-8b at full width and depth (36
+   layers, 16.4 GB of bf16 weights drawn on the card): the LM CLI
+   (``repro_torch.launch.serve``) at batch 4, max-seq 64, 32 greedy
+   tokens, the prefill of 4 x 64 tokens, 16 decode steps against a
+   teacher-forced forward within 5e-2 of max|logits| (a decode at
+   positions off by one must exceed it), the weight-read bound per step
+   (weight bytes / 3.35 TB/s), peak memory and the decode step's leading
+   device ops (``torch.profiler``); (d) ``examples/fleet_smoke.json``
+   whole through ``fleet_from_config`` on the card: its three loads open
+   loop, every LM answer within 1e-3 of an eager forward, every capture
+   inside a load, the accounting closed.
 
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
 one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
 ``{"sharding": ...}`` line, one ``{"async": ...}`` line, one
-``{"fleet": ...}`` line and one ``{"serving_mesh": ...}`` line, then as
-the last line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+``{"fleet": ...}`` line, one ``{"serving_mesh": ...}`` line and one
+``{"lm": ...}`` line, then as the last line ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -353,8 +374,8 @@ SHARD_SECONDS = 900
 # hidden 64: the run's dataset, Cora and CiteSeer, each ``(dataset,
 # impl, precision, fused)``; a capacity of the run's dataset's cost units
 # + 1, so two at most are resident and the cold traffic forces reloads.
-# The tenants are examples/fleet_smoke.json's (its LM entries wait for
-# ROADMAP A13): cold at 5 req/s on every servable, hot at 80 req/s on the
+# The tenants are examples/fleet_smoke.json's (phase 11 runs the file
+# whole, its LM included): cold at 5 req/s on every servable, hot at 80 req/s on the
 # run's dataset, open loop for FLEET_SECONDS (600 cold requests, 3,200 hot);
 # then the cold streams alone for as long.
 FLEET_SERVABLES = ((None, "cuda", "f32", False), ("cora", "cuda", "int8", True),
@@ -3111,6 +3132,412 @@ def mesh_serve(torch, rank: int, world: int, directory: str, dataset: str,
     return out
 
 
+# -- phase 11: the LM/SSM models ---------------------------------------------------
+
+# Card-vs-CPU bars on the logits, a share of max|CPU logits|: the CPU tests'
+# bars against the JAX package (tests/test_torch_lm.py), where bf16
+# rounding flips that the blocks amplify set them at jamba and xlstm.
+LM_REL = {"jamba-1.5-large-398b": 4e-2, "xlstm-1.3b": 1e-1}
+LM_REL_DEFAULT = 2e-2
+LM_DECODE_STEPS = 8
+# (b): one block of each mixer at its arch's published widths, batch 2 x
+# seq 16: (label, arch, block kind, memory tokens).  "encoder" is one
+# encoder layer over the memory (1,024 frames: the query-blocked path).
+# Jamba's FFN is left out (its mixer alone): the CPU side runs it too.
+LM_BLOCKS = (
+    ("qwen3-8b attn+mlp", "qwen3-8b", "attn+mlp", 0),
+    ("qwen2.5-14b attn (QKV bias)", "qwen2.5-14b", "attn", 0),
+    ("deepseek-v2-lite-16b MLA+MoE", "deepseek-v2-lite-16b", "attn+moe", 0),
+    ("jamba-1.5-large mamba", "jamba-1.5-large-398b", "mamba", 0),
+    ("xlstm-1.3b mlstm", "xlstm-1.3b", "mlstm", 0),
+    ("xlstm-1.3b slstm", "xlstm-1.3b", "slstm", 0),
+    ("llama-3.2-vision-11b xattn", "llama-3.2-vision-11b", "xattn", 1601),
+    ("seamless-m4t-large-v2 encoder layer", "seamless-m4t-large-v2",
+     "encoder", 1024),
+    ("seamless-m4t-large-v2 attnx", "seamless-m4t-large-v2", "attnx", 1024),
+)
+LM_BLOCK_SHAPE = (2, 16)
+LM_BLOCK_REL = 2e-2
+# (c): the LM CLI's default arch at full width and depth, its defaults
+# (batch 4, max-seq 64) and 32 greedy tokens; decode held against a
+# teacher-forced forward over LM_CHECKED tokens within LM_DECODE_REL of
+# max|forward logits| (rounding flips through 36 layers), which a decode
+# at positions off by one must exceed.
+LM_FULL = dict(arch="qwen3-8b", batch=4, max_seq=64, tokens=32)
+LM_CHECKED = 16
+LM_DECODE_REL = 5e-2
+LM_PREFILL_REPS = 5
+LM_FLEET_CONFIG = "examples/fleet_smoke.json"
+LM_FLEET_REL = 1e-3      # graph replays vs eager forwards on the same card
+
+
+def lm_to(torch, tree, dev):
+    from repro_torch.models.lm import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def lm_held(torch, got, want) -> dict:
+    return agreement(torch, got.float().cpu(), want.float().cpu())
+
+
+def lm_reduced_archs(torch, np, dev) -> dict:
+    """(a): each reduced arch's forward logits and 8 decode steps (cross
+    caches filled from the same memory) on the card against the CPU, the
+    same weights on both."""
+    from repro_torch.configs import get_config, list_archs, reduced
+    from repro_torch.models import lm
+
+    out = {}
+    for arch in list_archs():
+        cfg = reduced(get_config(arch))
+        cpu = torch.device("cpu")
+        p_cpu = lm.init_lm(cfg, torch.Generator().manual_seed(SEED), cpu)
+        p_dev = lm_to(torch, p_cpu, dev)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))
+        memory = None
+        if cfg.frontend_tokens:
+            memory = torch.as_tensor(rng.standard_normal(
+                (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+            ).to(torch.bfloat16)
+        bar = LM_REL.get(arch, LM_REL_DEFAULT)
+        rec = {"bar": bar}
+        want = lm.forward(p_cpu, cfg, tokens, memory)
+        got = lm.forward(p_dev, cfg, tokens.to(dev),
+                         None if memory is None else memory.to(dev))
+        rec["forward"] = lm_held(torch, got, want)
+        caches = {}
+        for side, p, d in (("cpu", p_cpu, cpu), ("card", p_dev, dev)):
+            cache = lm.init_cache(cfg, 2, 32, device=d)
+            if memory is not None:
+                cache = lm.fill_cross_cache(p, cfg, cache, memory.to(d))
+            caches[side] = cache
+        worst = 0.0
+        for t in range(LM_DECODE_STEPS):
+            want, caches["cpu"] = lm.decode_step(
+                p_cpu, cfg, caches["cpu"], tokens[:, t:t + 1], t)
+            got, caches["card"] = lm.decode_step(
+                p_dev, cfg, caches["card"], tokens[:, t:t + 1].to(dev), t)
+            worst = max(worst, lm_held(torch, got, want)["rel"])
+        rec["decode_worst_rel"] = worst
+        print(f"phase 11: {arch}: forward {describe(rec['forward'])}; "
+              f"{LM_DECODE_STEPS} decode steps worst rel {worst:.3e} "
+              f"(bar {bar})")
+        check(rec["forward"]["rel"] <= bar and worst <= bar,
+              f"phase 11: {arch}: card disagrees with the CPU")
+        out[arch] = rec
+    return out
+
+
+def lm_blocks(torch, np, dev) -> dict:
+    """(b): one block of each mixer at its arch's published widths on the
+    card against the CPU, the same weights and inputs on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    out = {}
+    b, s = LM_BLOCK_SHAPE
+    for label, arch, kind, mem_t in LM_BLOCKS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        gen = torch.Generator().manual_seed(SEED)
+        cpu = torch.device("cpu")
+        rng = np.random.default_rng(SEED)
+
+        def bf16(*shape):
+            return torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32)).to(torch.bfloat16)
+
+        if kind == "encoder":
+            enc_cfg = dataclasses.replace(cfg, encoder_layers=1)
+            p = {"encoder": lm._stacked(1, lambda _: lm._init_block(
+                    lm._dense(cfg), "attn+mlp", gen, cpu)),
+                 "enc_norm": torch.ones(cfg.d_model, dtype=torch.bfloat16)}
+            x = bf16(b, mem_t, cfg.d_model)
+
+            def block(p, x, memory, positions):
+                return lm.encode(p, enc_cfg, x)
+            memory = None
+        else:
+            p = lm._init_block(cfg, kind, gen, cpu)
+            if "bq" in p["mix"]:   # zero at init: give the bias path values
+                for name in ("bq", "bk", "bv"):
+                    p["mix"][name] = bf16(p["mix"][name].shape[0]) * 0.1
+            x = bf16(b, s, cfg.d_model)
+            memory = bf16(b, mem_t, cfg.d_model) if mem_t else None
+
+            def block(p, x, memory, positions, kind=kind, cfg=cfg):
+                return lm._apply_block(cfg, kind, p, x, positions, memory,
+                                       None, None)[0]
+        pos = torch.arange(x.shape[1])
+        want = block(p, x, memory, pos)
+        cpu_s = time.perf_counter() - t0
+        p_dev = lm_to(torch, p, dev)
+        args = (p_dev, x.to(dev), None if memory is None else memory.to(dev),
+                pos.to(dev))
+        got = block(*args)
+        reading = lm_held(torch, got, want)
+        ms = device_ms(torch, lambda: block(*args), reps=5, warm=1)
+        n_params = sum(t.numel() for _, t in lm_leaves(p))
+        print(f"phase 11: {label}: {n_params:,} params, x {tuple(x.shape)}"
+              + (f", memory {tuple(memory.shape)}" if memory is not None
+                 else "") + f": {describe(reading)} (bar {LM_BLOCK_REL}); "
+              f"card {ms:.3f} ms; CPU side {cpu_s:.1f} s")
+        check(reading["rel"] <= LM_BLOCK_REL,
+              f"phase 11: {label}: card disagrees with the CPU")
+        out[label] = dict(reading, params=n_params, card_ms=ms,
+                          x=list(x.shape),
+                          memory=None if memory is None else list(memory.shape))
+        del p, p_dev, args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_leaves(tree) -> list:
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
+
+
+def lm_decode_check(torch, lm, params, cfg, tokens, dev, offset: int) -> list:
+    """Per-step agreement of ``decode_step`` at positions ``t + offset``
+    with the teacher-forced forward over the same tokens."""
+    full = lm.forward(params, cfg, tokens)
+    cache = lm.init_cache(cfg, tokens.shape[0], LM_FULL["max_seq"], device=dev)
+    rels = []
+    for t in range(tokens.shape[1]):
+        logits, cache = lm.decode_step(params, cfg, cache,
+                                       tokens[:, t:t + 1], t + offset)
+        rels.append(agreement(torch, logits, full[:, t])["rel"])
+    return rels
+
+
+def lm_full_width(torch, np, dev, card: str) -> dict:
+    """(c): the LM CLI at full width and depth, then prefill timing, the
+    decode-vs-forward agreement with its off-by-one control, the weight
+    read bound and the decode step's leading device ops."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import lm
+
+    arch, batch = LM_FULL["arch"], LM_FULL["batch"]
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli = lm_serve.main(["--arch", arch, "--batch", str(batch),
+                         "--max-seq", str(LM_FULL["max_seq"]),
+                         "--tokens", str(LM_FULL["tokens"])])
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in lm_leaves(params))
+    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (batch, LM_FULL["max_seq"])),
+                             device=dev)
+    prefill = build_prefill_step(cfg, device=dev)
+    prefill(params, prompt)
+    times = []
+    for _ in range(LM_PREFILL_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = prefill(params, prompt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (batch, cfg.vocab),
+          "phase 11: prefill logits")
+    prefill_ms = statistics.median(times)
+
+    tokens = prompt[:, :LM_CHECKED]
+    rels = lm_decode_check(torch, lm, params, cfg, tokens, dev, 0)
+    control = lm_decode_check(torch, lm, params, cfg, tokens, dev, 1)
+    print(f"phase 11: {arch} decode vs forward over {LM_CHECKED} tokens: "
+          f"worst rel {max(rels):.3e} (limit {LM_DECODE_REL}); control at "
+          f"positions + 1: worst rel {max(control):.3e}, first step "
+          f"{control[0]:.3e}")
+    check(max(rels) <= LM_DECODE_REL,
+          f"phase 11: {arch}: decode disagrees with forward ({max(rels):.3e})")
+    check(max(control) > LM_DECODE_REL,
+          f"phase 11: {arch}: the off-by-one control passed "
+          f"({max(control):.3e})")
+
+    cache = lm.init_cache(cfg, batch, LM_FULL["max_seq"], device=dev)
+    for t in range(LM_CHECKED):
+        _, cache = lm.decode_step(params, cfg, cache, tokens[:, t:t + 1], t)
+    tok = tokens[:, -1:]
+    busy = device_busy(torch, lambda: lm.decode_step(params, cfg, cache, tok,
+                                                     LM_CHECKED))
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    busy_ms = sum(busy.values())
+    print(f"phase 11: {arch} ({param_bytes / 1e9:.2f} GB of weights): "
+          f"prefill {batch} x {LM_FULL['max_seq']} {prefill_ms:.3f} ms; "
+          f"decode p50 {cli['p50_ms']:.3f} / p99 {cli['p99_ms']:.3f} ms per "
+          f"token, {cli['tok_s']:.1f} tok/s at batch {batch}; weight-read "
+          f"bound {bound_ms:.3f} ms a step; device busy {busy_ms:.3f} ms a "
+          f"step; peak memory {peak / 2**30:.2f} GiB; CLI {cli_s:.1f} s; "
+          f"{card}")
+    print("phase 11: decode step's leading device ops (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in top))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": arch, "card": card, "batch": batch,
+        "max_seq": LM_FULL["max_seq"], "tokens": LM_FULL["tokens"],
+        "param_bytes": param_bytes, "weight_read_bound_ms": bound_ms,
+        "prefill_ms": prefill_ms, "prefill_ms_runs": times,
+        "decode_p50_ms": cli["p50_ms"], "decode_p99_ms": cli["p99_ms"],
+        "tok_s": cli["tok_s"], "decode_ms": cli["lat_ms"],
+        "peak_memory_bytes": peak, "decode_busy_ms": busy_ms,
+        "decode_top_ops_ms": dict(top),
+        "decode_vs_forward_rel": rels, "control_rel": control,
+        "limit": LM_DECODE_REL,
+    }
+
+
+def lm_fleet(torch, np, dev) -> dict:
+    """(d): ``examples/fleet_smoke.json`` whole through the port's
+    ``fleet_from_config`` on the card: its loads open loop, the LM answers
+    held against eager forwards, every capture inside a load."""
+    from repro_torch.fleet import (GcnServable, LmServable, TenantLoad,
+                                   fleet_from_config, run_open_loop_mix)
+    from repro_torch.models import lm
+
+    with open(os.path.join(ROOT, LM_FLEET_CONFIG)) as f:
+        config = json.load(f)
+    rt = fleet_from_config(config, device=dev)
+    t0 = time.perf_counter()
+    for key in rt.manager.keys():
+        rt.manager.resolve(key)
+    load_s = time.perf_counter() - t0
+
+    def builds():
+        return {k: (sv.compiles if isinstance(sv, LmServable)
+                    else sv.engine.compile_count)
+                for k in rt.manager.keys()
+                for sv in [rt.manager.servable(k)]}
+
+    loaded = builds()
+    rng = np.random.default_rng(0)
+    loads = []
+    for spec in config["loads"]:
+        sv = rt.manager.servable(spec["servable"])
+        n = int(spec["requests"])
+        if isinstance(sv, GcnServable):
+            payloads = [rng.choice(sv.engine.graph.n_nodes,
+                                   size=rng.integers(1, 5), replace=False)
+                        for _ in range(n)]
+        else:
+            payloads = [rng.integers(0, sv.cfg.vocab,
+                                     size=int(spec.get("seq_len", 12)))
+                        for _ in range(n)]
+        loads.append(TenantLoad(tenant=spec["tenant"],
+                                servable=spec["servable"], payloads=payloads,
+                                qps=float(spec["qps"]),
+                                deadline_s=float(spec["deadline_ms"]) / 1e3))
+    log = []
+    submit = rt.submit
+
+    def logged(key, payload, **kw):
+        req = submit(key, payload, **kw)
+        log.append((key, payload, req))
+        return req
+
+    rt.submit = logged
+    with rt:
+        wall = run_open_loop_mix(rt, loads, rng=np.random.default_rng(1))
+    check(builds() == loaded,
+          f"phase 11: fleet built executables outside its loads "
+          f"({loaded} -> {builds()})")
+    c = rt.metrics.snapshot()["counters"]
+    answered = {"lm": [], "gcn": 0}
+    for key, payload, req in log:
+        if not req.future.done() or req.future.exception() is not None:
+            continue
+        out = req.future.result()
+        sv = rt.manager.servable(key)
+        check(bool(np.isfinite(out).all()), f"phase 11: {key}: non-finite")
+        if isinstance(sv, LmServable):
+            prep = sv.prepare(payload)
+            toks = torch.as_tensor(prep.tokens[None], device=dev).long()
+            want = lm.forward(sv.params, sv.cfg, toks)[0, prep.n_tokens - 1]
+            answered["lm"].append(agreement(torch, torch.as_tensor(out),
+                                            want.cpu())["rel"])
+        else:
+            answered["gcn"] += 1
+    worst = max(answered["lm"], default=0.0)
+    accounted = (c["completed"] + c["rejected_quota"] + c["rejected_inflight"]
+                 + c["rejected_queue_full"] + c["rejected_infeasible"]
+                 + c["shed_expired"])
+    print(f"phase 11: {LM_FLEET_CONFIG}: servables {rt.manager.keys()} "
+          f"loaded in {load_s:.1f} s ({loaded} executables); offered "
+          f"{c['submitted']} over {wall:.2f} s, completed {c['completed']} "
+          f"(LM {len(answered['lm'])}, GCN {answered['gcn']}), quota "
+          f"{c['rejected_quota']}, infeasible {c['rejected_infeasible']}, "
+          f"expired {c['shed_expired']}, failed {c['failed']}; LM answers "
+          f"vs eager forwards worst rel {worst:.3e} (limit {LM_FLEET_REL}); "
+          f"no build outside the loads")
+    check(c["failed"] == 0 and accounted == c["submitted"],
+          "phase 11: fleet accounting")
+    check(len(answered["lm"]) > 0 and answered["gcn"] > 0,
+          "phase 11: the fleet answered no LM or no GCN request")
+    check(worst <= LM_FLEET_REL,
+          f"phase 11: LM answers disagree with eager forwards ({worst:.3e})")
+    for key in rt.manager.keys():
+        rt.manager.servable(key).unload()
+    torch.cuda.empty_cache()
+    return {"config": LM_FLEET_CONFIG, "executables": loaded,
+            "load_s": load_s, "wall_s": wall,
+            "counters": {k: c[k] for k in (
+                "submitted", "completed", "rejected_quota",
+                "rejected_inflight", "rejected_queue_full",
+                "rejected_infeasible", "shed_expired", "failed")},
+            "lm_answers": len(answered["lm"]), "gcn_answers": answered["gcn"],
+            "lm_worst_rel": worst}
+
+
+def phase_lm(torch, np, dev, card: str) -> dict:
+    """Phase 11: the LM/SSM models on the card (no TPU kernel lies on
+    this path: matrix products are ``torch.matmul`` / ``einsum``)."""
+    t0 = time.perf_counter()
+    reduced_archs = lm_reduced_archs(torch, np, dev)
+    t1 = time.perf_counter()
+    blocks = lm_blocks(torch, np, dev)
+    t2 = time.perf_counter()
+    full = lm_full_width(torch, np, dev, card)
+    t3 = time.perf_counter()
+    fleet = lm_fleet(torch, np, dev)
+    t4 = time.perf_counter()
+    seconds = {"reduced": t1 - t0, "blocks": t2 - t1, "full": t3 - t2,
+               "fleet": t4 - t3}
+    print("phase 11: seconds " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
+    return {"card": card, "reduced": reduced_archs, "blocks": blocks,
+            "full": full, "fleet": fleet, "seconds": seconds}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -3135,12 +3562,14 @@ def run(args) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs reduce in f32, as the reference's do (phase 11)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache_dir:
         return drive(torch, np, args, cache_dir)
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-10 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-11 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -3207,6 +3636,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
     serving_mesh = phase_serving_mesh(torch, np, registry, data, graph, cfg,
                                       params, dev, args.dataset, card)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    t11 = time.perf_counter()
+    lm_phase = phase_lm(torch, np, dev, card)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -3285,6 +3717,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
                                     loads=ASYNC_LOADS[args.dataset])}))
     print(json.dumps({"fleet": dict(fleet, card=card, settings=SERVE)}))
     print(json.dumps({"serving_mesh": dict(serving_mesh, settings=SERVE)}))
+    print(json.dumps({"lm": lm_phase}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

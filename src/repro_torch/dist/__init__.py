@@ -1,1 +1,2 @@
-"""Mesh planning, the sharded SpMM's collectives and the traffic ledger."""
+"""Mesh planning, the sharded SpMM's collectives, the traffic ledger and
+the sharding policy (``policy``)."""

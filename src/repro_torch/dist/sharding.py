@@ -6,8 +6,8 @@ and ``_dp_entry``), over the axis sizes of a mesh: an abstract mesh
 (``launch.mesh.make_data_mesh``).  A spec is a tuple of entries, one per
 leading dimension, as the reference's ``PartitionSpec`` is: ``("data",)``
 shards the batch over the data axis, ``(("pod", "data"),)`` over both,
-``()`` replicates it.  ``ShardingPlan`` serves the LM models only and
-waits for ROADMAP A13.
+``()`` replicates it.  ``ShardingPlan`` serves the LM models under a
+mesh only and waits for ROADMAP A13b.
 """
 
 from __future__ import annotations

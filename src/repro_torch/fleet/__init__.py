@@ -2,8 +2,8 @@
 
 The port of ``repro.fleet``.  Many graphs served by one deadline-aware
 queue / scheduler / worker loop: ``Servable`` abstracts the model kind
-(:class:`GcnServable` over the port's serving engine; :class:`LmServable`
-waits for the LM models, ROADMAP A13), :class:`FleetManager` owns routing
+(:class:`GcnServable` over the port's serving engine, :class:`LmServable`
+over the port's LM models), :class:`FleetManager` owns routing
 and hot load/unload under a residency budget, :class:`TenantTable`
 enforces per-tenant quotas and SLO classes at admission, and
 :class:`FleetRuntime` ties them to ``repro_torch.runtime`` with

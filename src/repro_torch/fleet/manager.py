@@ -484,11 +484,13 @@ def build_servable(spec: dict, device=None) -> Servable:
 
     ``gcn``: ``{"kind": "gcn", "key": ..., "dataset": ..., "hidden_dim":
     ..., "spmm_impl": ..., "max_batch": ..., "fanout": ..., "cost": ...}``
-    — dataset names resolve through ``repro_torch.graphs.load_dataset``;
-    the engine runs on ``device`` (the card when None).  ``lm`` specs
-    raise: the LM servable is ROADMAP item A13.
+    — dataset names resolve through ``repro_torch.graphs.load_dataset``.
+    ``lm``: ``{"kind": "lm", "key": ..., "arch": ..., "seq_buckets":
+    [...], "max_batch": ..., "cost": ...}`` — archs resolve through
+    ``repro_torch.configs`` (reduced smoke-size by default).  Either runs
+    on ``device`` (the card when None).
     """
-    from repro_torch.fleet.servable import GcnServable
+    from repro_torch.fleet.servable import GcnServable, LmServable
 
     kind = spec.get("kind")
     if kind == "gcn":
@@ -506,9 +508,13 @@ def build_servable(spec: dict, device=None) -> Servable:
         return GcnServable(engine, key=spec.get("key"),
                            cost=spec.get("cost"))
     if kind == "lm":
-        raise NotImplementedError(
-            f"servable {spec.get('key')!r} of kind 'lm': the LM servable "
-            f"is ROADMAP item A13, not ported yet")
+        lm_kw = {
+            k: spec[k]
+            for k in ("seq_buckets", "max_batch", "seed", "full_size")
+            if k in spec
+        }
+        return LmServable(spec["arch"], key=spec.get("key"),
+                          cost=spec.get("cost"), device=device, **lm_kw)
     raise ValueError(f"unknown servable kind {kind!r}")
 
 
@@ -527,13 +533,8 @@ def fleet_from_config(
     "max_inflight": ..., "deadline_s": ..., "allowed_methods":
     [...]}, ...], "weights": {key: w, ...}, "queue_capacity": 256,
     "max_wait_s": 0.05}`` — every section optional except
-    ``servables``.  An ``lm`` servable raises (ROADMAP A13) before any
-    servable is built.  GCN servables run on ``device`` (the card when
-    None).
+    ``servables``.  Servables run on ``device`` (the card when None).
     """
-    for spec in config["servables"]:
-        if spec.get("kind") == "lm":
-            build_servable(spec)          # raises, naming A13
     manager = FleetManager(
         capacity_units=float(config.get("capacity_units", 8.0)),
         predictive_unload=bool(config.get("predictive_unload", False)),

@@ -21,8 +21,10 @@ kind abstracted away:
 :class:`GcnServable` serves the port's SpMM serving core: sampler +
 micro-batcher + one CUDA graph per (bucket, batch) on the card, captured
 by ``load()`` and dropped, with their graph memory pool, by ``unload()``.
-:class:`LmServable` (a decoder LM from the arch registry) waits for the LM
-models, ROADMAP A13; its payload types are plain data and ported.
+:class:`LmServable` serves a decoder LM from the port's arch registry by
+sequence bucket: one CUDA graph of ``models.lm.forward`` per (bucket,
+batch) on the card, captured by ``load()`` and dropped, with its graph
+memory pool, by ``unload()``; a closure on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +33,11 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.configs import get_config, reduced
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import forward, init_lm
 from repro_torch.runtime.queue import BucketEstimator
 from repro_torch.runtime.scheduler import BatchProfile
 
@@ -186,10 +192,198 @@ class LmPrepared:
 
 
 class LmServable(Servable):
-    """A decoder LM from the arch registry, served by sequence bucket: it
-    needs the LM models and the arch registry, ROADMAP A13."""
+    """A decoder LM from the arch registry, served by sequence bucket.
 
-    def __init__(self, arch: str, **kw):
-        raise NotImplementedError(
-            f"LmServable({arch!r}): the LM models and the arch registry are "
-            f"ROADMAP item A13, not ported yet")
+    Payloads are token-id sequences; the answer is the logits at the last
+    *real* position (the next-token distribution).  Sequences pad to a
+    small ladder of lengths and batches to a power-of-two ladder, so the
+    executables are ``seq_buckets x batch ladder``, all warmed by
+    ``load()``.  Padding is causal-safe: positions past ``n_tokens`` are
+    zero tokens the causal mask keeps out of every real position's
+    context, and the read-out row never moves.
+
+    On the card an executable is a CUDA graph of ``forward`` over a static
+    token buffer, captured (``thread_local``, one warm-up stream per
+    servable, one graph pool for all its graphs) so a fleet can load it
+    while its worker replays another servable's graphs; the forward reads
+    nothing back to the host, so it captures whole.  ``compiles`` counts
+    executables built, across reloads.  ``params`` takes a tree from
+    :func:`repro_torch.models.convert.lm_params_from_numpy` (tests serve
+    the reference's weights); without it the weights come from ``seed``
+    through ``torch.Generator`` on the device.  Runs on the card unless
+    ``device`` is given.
+    """
+
+    def __init__(
+        self,
+        arch: str,
+        *,
+        key: Optional[str] = None,
+        seq_buckets: Sequence[int] = (16, 32, 64),
+        max_batch: int = 8,
+        seed: int = 0,
+        full_size: bool = False,
+        cost: Optional[float] = None,
+        base_seconds: float = 2e-4,
+        params: Optional[dict] = None,
+        device=None,
+    ):
+        cfg = get_config(arch)
+        if not full_size:
+            cfg = reduced(cfg)
+        if cfg.frontend_tokens:
+            raise ValueError(
+                f"arch {arch!r} needs frontend memory embeddings; "
+                f"text-only servables cannot serve it")
+        self.device = resolve_device(device)
+        self.arch = arch
+        self.key = key or f"lm_{cfg.name}"
+        self.cfg = cfg
+        self.seq_buckets = tuple(sorted(int(s) for s in seq_buckets))
+        self.max_batch = int(max_batch)
+        self.params = (params if params is not None else init_lm(
+            cfg, torch.Generator(device=self.device).manual_seed(seed),
+            self.device))
+        self._cost = cost
+        self.compiles = 0
+        self.calls = 0
+        self._executables: Dict[Tuple[SeqBucket, int], object] = {}
+        self._pool = None
+        self._side = None
+        # Cold estimate: one forward is ~linear in tokens processed
+        # (batch x seq) at smoke scale; real executions fold in through
+        # the EWMA immediately.
+        self._estimator = EwmaEstimator(
+            lambda bucket, batch: base_seconds * batch * bucket.seq)
+
+    # -- batching geometry ------------------------------------------------
+
+    def batch_ladder(self) -> List[int]:
+        sizes = [1]
+        while sizes[-1] < self.max_batch:
+            sizes.append(min(sizes[-1] * 2, self.max_batch))
+        return sizes
+
+    def pad_batch(self, n: int) -> int:
+        for b in self.batch_ladder():
+            if b >= n:
+                return b
+        raise ValueError(f"batch {n} exceeds max_batch {self.max_batch}")
+
+    def profile(self) -> BatchProfile:
+        return BatchProfile(self.max_batch, tuple(self.batch_ladder()))
+
+    @property
+    def estimator(self) -> EwmaEstimator:
+        return self._estimator
+
+    def cost_units(self) -> float:
+        if self._cost is not None:
+            return self._cost
+        return 1.0
+
+    # -- lifecycle --------------------------------------------------------
+
+    def _executable(self, bucket: SeqBucket, batch: int):
+        key = (bucket, batch)
+        exe = self._executables.get(key)
+        if exe is None:
+            if self.device.type == "cuda":
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                if self._side is None:
+                    self._side = torch.cuda.Stream(self.device)
+                exe = _CapturedLm(self.params, self.cfg, (batch, bucket.seq),
+                                  self.device, self._pool, self._side)
+            else:
+                exe = _EagerLm(self.params, self.cfg)
+            self.compiles += 1
+            self._executables[key] = exe
+        return exe
+
+    def load(self) -> None:
+        for seq in self.seq_buckets:
+            for b in self.batch_ladder():
+                self._executable(SeqBucket(seq), b)
+
+    def unload(self) -> None:
+        """Drop every executable, with its graph, static buffers and the
+        graph pool (the warm-up stream stays for the next captures)."""
+        self._executables.clear()
+        self._pool = None
+
+    # -- serving ----------------------------------------------------------
+
+    def prepare(self, payload: Sequence[int]) -> LmPrepared:
+        tokens = np.asarray(list(payload), dtype=np.int32)
+        if tokens.ndim != 1 or tokens.size == 0:
+            raise ValueError("LM payload must be a non-empty 1-D token "
+                             "sequence")
+        if np.any(tokens < 0) or np.any(tokens >= self.cfg.vocab):
+            raise ValueError(
+                f"token ids must be in [0, {self.cfg.vocab})")
+        for seq in self.seq_buckets:
+            if seq >= tokens.size:
+                break
+        else:
+            raise ValueError(
+                f"sequence length {tokens.size} exceeds the top bucket "
+                f"{self.seq_buckets[-1]}")
+        padded = np.zeros((seq,), dtype=np.int32)
+        padded[: tokens.size] = tokens
+        return LmPrepared(
+            bucket=SeqBucket(seq), tokens=padded, n_tokens=int(tokens.size))
+
+    def run_batch(self, prepared: List[LmPrepared]) -> List[np.ndarray]:
+        if not prepared:
+            return []
+        bucket = prepared[0].bucket
+        if any(p.bucket != bucket for p in prepared):
+            raise ValueError("run_batch() requires a single-bucket batch")
+        batch = self.pad_batch(len(prepared))
+        toks = np.zeros((batch, bucket.seq), dtype=np.int64)
+        for i, p in enumerate(prepared):
+            toks[i] = p.tokens
+        rows = [p.n_tokens - 1 for p in prepared]
+        out = self._executable(bucket, batch)(torch.from_numpy(toks), rows)
+        self.calls += 1
+        return list(out)
+
+
+class _EagerLm:
+    """One (bucket, batch) forward as a closure (CPU tensors)."""
+
+    def __init__(self, params: dict, cfg):
+        self.params, self.cfg = params, cfg
+
+    def __call__(self, tokens: torch.Tensor, rows: List[int]) -> np.ndarray:
+        logits = forward(self.params, self.cfg, tokens)
+        return logits[torch.arange(len(rows)), torch.as_tensor(rows)].numpy()
+
+
+class _CapturedLm:
+    """One (bucket, batch) forward as a CUDA graph over a static token
+    buffer: run once on the servable's side stream (kernels load and
+    cuBLAS sets up outside the capture), then captured into ``pool``.
+    A replay copies the tokens in; only the read-out rows come back."""
+
+    def __init__(self, params: dict, cfg, shape: Tuple[int, int],
+                 device: torch.device, pool, side):
+        self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            forward(params, cfg, self.tokens)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = forward(params, cfg, self.tokens)
+        self.replays = 0
+
+    def __call__(self, tokens: torch.Tensor, rows: List[int]) -> np.ndarray:
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        self.replays += 1
+        idx = torch.as_tensor(rows, device=self.out.device)
+        first = torch.arange(len(rows), device=idx.device)
+        return self.out[first, idx].cpu().numpy()

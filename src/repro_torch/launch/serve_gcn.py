@@ -168,23 +168,23 @@ def run_fleet_scenario(args, device=None) -> None:
 
         {"servables": [{"kind": "gcn", "key": "cora", "dataset": "cora",
                         "hidden_dim": 16, "fanout": 8},
-                       {"kind": "gcn", "key": "citeseer",
-                        "dataset": "citeseer", "spmm_impl": "cuda"}],
+                       {"kind": "lm", "key": "lm", "arch": "internlm2-1.8b"}],
          "capacity_units": 8.0,
          "tenants": [{"name": "hot", "qps": 50, "burst": 8,
                       "deadline_s": 0.2},
                      {"name": "cold", "priority": 1, "deadline_s": 0.2}],
-         "weights": {"cora": 1.0, "citeseer": 1.0},
+         "weights": {"cora": 1.0, "lm": 1.0},
          "loads": [{"tenant": "hot", "servable": "cora", "qps": 80,
                     "requests": 64, "deadline_ms": 200},
-                   {"tenant": "cold", "servable": "citeseer", "qps": 5,
-                    "requests": 16, "deadline_ms": 200}]}
+                   {"tenant": "cold", "servable": "lm", "qps": 5,
+                    "requests": 16, "deadline_ms": 200, "seq_len": 12}]}
 
-    A servable of kind ``lm`` raises (ROADMAP A13).
+    An ``lm`` load draws ``seq_len`` token ids (12 unless given) per
+    request.
     """
     import json
 
-    from repro_torch.fleet import (GcnServable, TenantLoad,
+    from repro_torch.fleet import (GcnServable, LmServable, TenantLoad,
                                    fleet_from_config, run_open_loop_mix)
     from repro_torch.runtime.metrics import labeled
 
@@ -202,17 +202,22 @@ def run_fleet_scenario(args, device=None) -> None:
     loads = []
     for spec in config.get("loads", []):
         sv = rt.manager.servable(spec["servable"])
-        if not isinstance(sv, GcnServable):
+        n = int(spec.get("requests", args.requests))
+        if isinstance(sv, GcnServable):
+            n_nodes = sv.engine.graph.n_nodes
+            payloads = [
+                rng.choice(n_nodes,
+                           size=rng.integers(1, args.seeds_per_request + 1),
+                           replace=False)
+                for _ in range(n)
+            ]
+        elif isinstance(sv, LmServable):
+            seq = int(spec.get("seq_len", 12))
+            payloads = [rng.integers(0, sv.cfg.vocab, size=seq)
+                        for _ in range(n)]
+        else:
             raise ValueError(
                 f"no payload generator for servable {spec['servable']!r}")
-        n = int(spec.get("requests", args.requests))
-        n_nodes = sv.engine.graph.n_nodes
-        payloads = [
-            rng.choice(n_nodes,
-                       size=rng.integers(1, args.seeds_per_request + 1),
-                       replace=False)
-            for _ in range(n)
-        ]
         loads.append(TenantLoad(
             tenant=spec["tenant"],
             servable=spec["servable"],

@@ -1,1 +1,2 @@
-"""The GCN model and the parameter bridge from the reference."""
+"""The GCN model, the LM/SSM models (``layers``, ``ssm``, ``lm``) and the
+parameter bridge from the reference (``convert``)."""

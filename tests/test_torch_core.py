@@ -232,6 +232,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         spmm_ell(t.ell, np.zeros((64, 4), np.float32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({"layer_0": {"w": np.zeros((2, 2))}})
+    # the LM entry points
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.fleet import LmServable, fleet_from_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch.steps import step_for
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.convert import lm_cache_from_numpy, lm_params_from_numpy
+
+    lm_cfg = reduced(get_config("internlm2-1.8b"))
+    for call in (
+        lambda: LmServable("internlm2-1.8b"),
+        lambda: lm_serve.main(["--reduced", "--tokens", "2"]),
+        lambda: lm_params_from_numpy({"embed": np.zeros((2, 2), np.float32)}),
+        lambda: lm_cache_from_numpy({"k": np.zeros((2, 2), np.float32)}),
+        lambda: step_for(lm_cfg, "decode"),
+        lambda: step_for(lm_cfg, "prefill"),
+        lambda: tlm.init_lm(lm_cfg),
+        lambda: tlm.init_cache(lm_cfg, 1, 4),
+        lambda: fleet_from_config({"servables": [
+            {"kind": "lm", "key": "lm", "arch": "internlm2-1.8b"}]}),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
     # the same calls run when the CPU is asked for
     out = tgcn.gcn_forward(params, graph, feats, cfg, device="cpu")
     assert tuple(out.shape) == (64, 2)

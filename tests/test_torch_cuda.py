@@ -880,3 +880,64 @@ def test_cuda_fleet_two_servables_graphs_alive_together(cuda_device,
         assert replays > replays0[key]
         assert card.compile_count == built[key]
     assert mgr.loads == 2 and mgr.unloads == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v2-lite-16b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_cuda_lm_forward_and_decode_match_the_cpu(cuda_device, arch):
+    """A reduced LM on the card: forward logits and 4 decode steps within
+    the CPU parity tests' bars of the CPU's, from the same weights."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+
+    bars = {"jamba-1.5-large-398b": 4e-2, "xlstm-1.3b": 1e-1}
+    cfg = reduced(get_config(arch))
+    p_cpu = lm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_dev = lm.tree_map(lambda t: t.to(cuda_device), p_cpu)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)))
+    bar = bars.get(arch, 2e-2)
+    assert rel_max_err(lm.forward(p_dev, cfg, tokens.to(cuda_device)),
+                       lm.forward(p_cpu, cfg, tokens)) <= bar
+    c_cpu = lm.init_cache(cfg, 2, 8, device="cpu")
+    c_dev = lm.init_cache(cfg, 2, 8, device=cuda_device)
+    for t in range(4):
+        want, c_cpu = lm.decode_step(p_cpu, cfg, c_cpu, tokens[:, t:t + 1], t)
+        got, c_dev = lm.decode_step(p_dev, cfg, c_dev,
+                                    tokens[:, t:t + 1].to(cuda_device), t)
+        assert rel_max_err(got, want) <= bar
+
+
+@pytest.mark.cuda
+def test_cuda_lm_servable_captures_and_replays(cuda_device):
+    """``LmServable.load`` captures one CUDA graph per (bucket, batch);
+    replays answer as eager forwards on the card do, across a reload, and
+    nothing is captured outside ``load``."""
+    from repro_torch.fleet import LmServable
+    from repro_torch.models import lm as tlm
+
+    sv = LmServable("internlm2-1.8b", seq_buckets=(8, 16), max_batch=4,
+                    device=cuda_device)
+    sv.load()
+    grid = sv.compiles
+    assert grid == 6
+    rng = np.random.default_rng(1)
+    payloads = [list(rng.integers(0, sv.cfg.vocab, size=n))
+                for n in (3, 8, 12, 16, 5)]
+    for cycle in range(2):
+        for seq in (8, 16):
+            group = [sv.prepare(p) for p in payloads
+                     if sv.prepare(p).bucket.seq == seq]
+            outs = sv.run_batch(group)
+            for p, out in zip(group, outs):
+                toks = torch.as_tensor(p.tokens[None], device=cuda_device)
+                want = tlm.forward(sv.params, sv.cfg, toks.long())
+                np.testing.assert_allclose(
+                    out, want[0, p.n_tokens - 1].cpu().numpy(),
+                    rtol=1e-3, atol=1e-3)
+        assert sv.compiles == grid * (cycle + 1)
+        assert sum(e.replays for e in sv._executables.values()) == 2
+        sv.unload()
+        assert not sv._executables
+        sv.load()

@@ -10,16 +10,16 @@ accounting, inflight release on completion, cancel and shed,
 fleet scenario as the reference's does, within 1e-5 of the output scale
 at f32, bf16 and int8, unfused and fused; a one-servable fleet is
 bit-identical to the port's ``ServeRuntime``; ``fleet_from_config``
-builds a GCN-only fleet, and an ``lm`` servable raises naming ROADMAP
-A13, as ``LmServable`` does.  The reference's LM fleet cases
-(``test_gcn_plus_lm_fleet_end_to_end``,
-``test_lm_servable_validates_payloads``) wait for A13.
+builds a GCN fleet and ``examples/fleet_smoke.json``'s GCN + LM fleet.
+The reference's LM fleet cases run through the port in
+``tests/test_torch_lm_serve.py``.
 """
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro.fleet as JF
 import repro.runtime as JR
@@ -340,16 +340,44 @@ def test_fleet_config_round_trip(toy_dataset):
                                   sv.engine.query([1, 2, 3]))
 
 
-def test_lm_servables_wait_for_a13(toy_dataset):
-    """An ``lm`` spec raises naming A13 before anything is built, and so
-    does ``LmServable``; its payload types are plain data."""
-    config = _config()
-    config["servables"].append({"kind": "lm", "key": "lm",
-                                "arch": "internlm2-1.8b"})
-    with pytest.raises(NotImplementedError, match="A13"):
-        TF.fleet_from_config(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        TF.LmServable("internlm2-1.8b")
+def test_lm_servables_wait_for_a13():
+    """The LM servables of ROADMAP A13 are served:
+    ``examples/fleet_smoke.json`` builds its GCN and its LM servable and
+    serves both: every load warms its grid, a request of each kind
+    completes with its servable's answer, and no executable is built
+    after the loads.  Unknown kinds raise; the LM payload types are plain
+    data."""
+    import os
+
+    from repro_torch.models import lm as tlm
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "fleet_smoke.json")
+    with open(path) as f:
+        config = json.load(f)
+    clock = TR.VirtualClock(start=10.0)
+    rt = TF.fleet_from_config(config, clock=clock, device="cpu")
+    assert sorted(rt.manager.keys()) == ["cora", "lm"]
+    for key in rt.manager.keys():
+        rt.manager.resolve(key)
+    gcn, lm = rt.manager.servable("cora"), rt.manager.servable("lm")
+    assert isinstance(gcn, TF.GcnServable) and isinstance(lm, TF.LmServable)
+    assert lm.compiles == 3                      # seq 16 x batch (1, 2, 4)
+    builds = (gcn.engine.compile_count, lm.compiles)
+    rng = np.random.default_rng(2)
+    payload = list(rng.integers(0, lm.cfg.vocab, size=12))
+    r_lm = rt.submit("lm", payload, tenant="cold", deadline_s=2.0)
+    r_gcn = rt.submit("cora", [1, 2, 3], tenant="cold", deadline_s=2.0)
+    _drive(rt, clock)
+    toks = torch.zeros((1, 16), dtype=torch.long)
+    toks[0, :12] = torch.as_tensor(payload)
+    want = tlm.forward(lm.params, lm.cfg, toks)[0, 11].numpy()
+    np.testing.assert_allclose(r_lm.future.result(timeout=0), want,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(r_gcn.future.result(timeout=0),
+                                  gcn.engine.query([1, 2, 3]))
+    assert (gcn.engine.compile_count, lm.compiles) == builds
+    assert rt.metrics.count("completed") == 2
     with pytest.raises(ValueError, match="unknown servable kind"):
         TF.build_servable({"kind": "ssm"})
     p = TF.LmPrepared(bucket=TF.SeqBucket(8),

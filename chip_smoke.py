@@ -79,9 +79,10 @@ Phases, in order; any failure exits non-zero:
    kernels, and no other, must have launched; the logits are held against
    the reference impl at phase 4's limits.  Then it times the chosen
    pipeline, the static unfused and the static fused plan in interleaved
-   rounds (300 at PubMed, 20 at Reddit), each median beside the model's
-   ms and the measured-to-modeled ratio: each chosen forward must be
-   within 10% of the static unfused one.  At Reddit the f32 choice must
+   rounds (300 at PubMed, 20 at Reddit; each round in the next of their
+   orders; plans that run the same layers timed once), each median beside
+   the model's ms and the measured-to-modeled ratio: each chosen forward
+   must be within 10% of the static unfused one.  At Reddit the f32 choice must
    be unfused and the model within 0.5x-2x of the chosen and static
    unfused forwards.  At PubMed one engine with ``autoplan=True``,
    ``precision="auto"`` and ``ladder_growth="auto"`` (the registry of
@@ -198,14 +199,40 @@ Phases, in order; any failure exits non-zero:
    device ops (``torch.profiler``); (d) ``examples/fleet_smoke.json``
    whole through ``fleet_from_config`` on the card: its three loads open
    loop, every LM answer within 1e-3 of an eager forward, every capture
-   inside a load, the accounting closed.
+   inside a load, the accounting closed.  Bf16 GEMMs reduce in f32 as
+   the reference's do: the LM entry points scope the setting themselves
+   (``layers.bf16_full_reduction``) and the direct calls here set it;
+   the decode-vs-forward agreement is also printed at torch's default.
+12. Training (``repro_torch.train``, ``launch.steps.build_train_step``;
+   no TPU kernel lies on this path): (a) the LM training CLI
+   (``repro_torch.launch.train``) at its defaults, internlm2-1.8b uncut
+   (24 layers, d 2048, vocab 92,544), 20 steps of batch 8 x seq 128 with
+   remat: the loss must fall; the median step ms over steps 3-20,
+   tokens/s, peak memory, one more step's device busy ms and leading ops
+   (``torch.profiler``) beside its bound (8 x params x tokens / 989
+   TFLOP/s against AdamW's 22 bytes a parameter / 3.35 TB/s); the
+   trained state through ``save_async`` and ``restore``, bit-equal;
+   (b) one step's loss and gradients of the ten reduced archs on the
+   card against the CPU from one state, each leaf held by
+   ``train.grad.hold_leaf`` given the CPU's own move under 1-ulp
+   embedding moves (the CPU tests' rule: within 2e-2 of max|CPU grad| or
+   twice that move, up to 0.25; beyond, by cosine distance and norm
+   ratio), with bf16 reductions in f32 (gated) and at torch's default
+   (printed); (c) a reduced internlm2 through the trainer
+   with a StepFailure at step 10 resumes from its checkpoint and its
+   losses stay within 1e-2 of an uninterrupted run's; (d) the GCN as
+   ``examples/train_gcn.py`` trains it: the dataset at its published
+   widths, hidden 64, ``impl="reference"``, 100 steps with a failure at
+   step 40, the first step's gradients on the card and on the CPU each
+   within 2^-23 sqrt(nnz) of an f64 plain GCN's on the CPU, one step's
+   device ops, and a ``cuda`` impl refusing gradients.
 
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
 one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
 ``{"sharding": ...}`` line, one ``{"async": ...}`` line, one
-``{"fleet": ...}`` line, one ``{"serving_mesh": ...}`` line and one
-``{"lm": ...}`` line, then as the last line ``{"ok": true, "device":
-{...}}``.  Without CUDA, or without the
+``{"fleet": ...}`` line, one ``{"serving_mesh": ...}`` line, one
+``{"lm": ...}`` line and one ``{"train": ...}`` line, then as the last
+line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
 """
@@ -214,7 +241,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1469,16 +1498,27 @@ def describe_plan(pplan) -> list:
 def timed_rounds(torch, fns: dict, rounds: int) -> dict:
     """Median host ms of each of ``fns`` (name -> callable), called in
     ``rounds`` interleaved rounds (each call ending in a synchronize)
-    after one warm round."""
+    after one warm round.  Round ``i`` calls them in the ``i``-th of
+    their orders (cycling through all of them), so that every callable
+    follows every other one equally often: at PubMed a forward runs 1-6%
+    slower right after the fused one, and a fixed cyclic order put the
+    same plan there in every round."""
+    orders = list(itertools.permutations(fns))
     times = {name: [] for name in fns}
     for i in range(1 + rounds):
-        for name, fn in fns.items():
+        for name in orders[i % len(orders)]:
             t0 = time.perf_counter()
-            fn()
+            fns[name]()
             torch.cuda.synchronize()
             if i:
                 times[name].append((time.perf_counter() - t0) * 1e3)
     return {name: statistics.median(t) for name, t in times.items()}
+
+
+def layer_runs(pplan) -> str:
+    """What a pipeline plan runs, layer by layer (not its modeled times)."""
+    return repr([(lp.spmm, lp.f_in, lp.f_out, lp.in_layout, lp.out_layout)
+                 for lp in pplan.layers])
 
 
 def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
@@ -1539,18 +1579,25 @@ def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
                  "static_unfused": static_pipeline(cfg, precision=precision),
                  "static_fused": static_pipeline(cfg, precision=precision,
                                                  fused=True)}
+        # plans that run the same layers (the chosen one is often the
+        # static unfused one) are one forward, timed once for both labels
+        runs = {}
+        for label, pp in plans.items():
+            runs.setdefault(layer_runs(pp), label)
         medians = timed_rounds(torch, {
-            label: (lambda pp=pp: gcn_forward(params, graph, feats, cfg,
-                                              plan=pp, device=dev))
-            for label, pp in plans.items()}, rounds)
+            label: (lambda pp=plans[label]: gcn_forward(
+                params, graph, feats, cfg, plan=pp, device=dev))
+            for label in runs.values()}, rounds)
         timed = {}
         for label, pp in plans.items():
-            ms = medians[label]
+            ms = medians[runs[layer_runs(pp)]]
             modeled = 1e3 * pipeline_seconds(stats, pp, device=model)
             timed[label] = {"measured_ms": ms, "modeled_ms": modeled,
-                            "measured_over_modeled": ms / modeled}
+                            "measured_over_modeled": ms / modeled,
+                            "timed_as": runs[layer_runs(pp)]}
             print(f"phase 6: {precision} {label} forward median {ms:.3f} ms "
-                  f"over {rounds} interleaved rounds, modeled {modeled:.3f} "
+                  f"over {rounds} interleaved rounds (timed as "
+                  f"{runs[layer_runs(pp)]}), modeled {modeled:.3f} "
                   f"ms (measured / modeled {ms / modeled:.3f})")
         limit = PLAN_SLOWER * timed["static_unfused"]["measured_ms"]
         check(timed["chosen"]["measured_ms"] <= limit, f"{precision}: "
@@ -3171,6 +3218,13 @@ LM_FLEET_CONFIG = "examples/fleet_smoke.json"
 LM_FLEET_REL = 1e-3      # graph replays vs eager forwards on the same card
 
 
+def reduced_precision_allowed(torch) -> bool:
+    """Whether cuBLAS may reduce bf16 products in bf16 inside: torch's
+    default (``True``) outside the port's LM entry points, which scope
+    ``False`` (``layers.bf16_full_reduction``)."""
+    return torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
 def lm_to(torch, tree, dev):
     from repro_torch.models.lm import tree_map
 
@@ -3334,6 +3388,7 @@ def lm_full_width(torch, np, dev, card: str) -> dict:
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import lm
+    from repro_torch.models.layers import bf16_full_reduction
 
     arch, batch = LM_FULL["arch"], LM_FULL["batch"]
     cfg = get_config(arch)
@@ -3371,12 +3426,17 @@ def lm_full_width(torch, np, dev, card: str) -> dict:
     prefill_ms = statistics.median(times)
 
     tokens = prompt[:, :LM_CHECKED]
-    rels = lm_decode_check(torch, lm, params, cfg, tokens, dev, 0)
-    control = lm_decode_check(torch, lm, params, cfg, tokens, dev, 1)
+    with bf16_full_reduction():             # as the port's entry points
+        rels = lm_decode_check(torch, lm, params, cfg, tokens, dev, 0)
+        control = lm_decode_check(torch, lm, params, cfg, tokens, dev, 1)
+    default = reduced_precision_allowed(torch)
+    rels_default = lm_decode_check(torch, lm, params, cfg, tokens, dev, 0)
     print(f"phase 11: {arch} decode vs forward over {LM_CHECKED} tokens: "
           f"worst rel {max(rels):.3e} (limit {LM_DECODE_REL}); control at "
           f"positions + 1: worst rel {max(control):.3e}, first step "
-          f"{control[0]:.3e}")
+          f"{control[0]:.3e}; with bf16 reduced-precision reductions "
+          f"allowed={default} (torch's default, not gated): worst rel "
+          f"{max(rels_default):.3e}")
     check(max(rels) <= LM_DECODE_REL,
           f"phase 11: {arch}: decode disagrees with forward ({max(rels):.3e})")
     check(max(control) > LM_DECODE_REL,
@@ -3413,6 +3473,7 @@ def lm_full_width(torch, np, dev, card: str) -> dict:
         "peak_memory_bytes": peak, "decode_busy_ms": busy_ms,
         "decode_top_ops_ms": dict(top),
         "decode_vs_forward_rel": rels, "control_rel": control,
+        "decode_vs_forward_rel_reduced_allowed": rels_default,
         "limit": LM_DECODE_REL,
     }
 
@@ -3521,10 +3582,13 @@ def lm_fleet(torch, np, dev) -> dict:
 def phase_lm(torch, np, dev, card: str) -> dict:
     """Phase 11: the LM/SSM models on the card (no TPU kernel lies on
     this path: matrix products are ``torch.matmul`` / ``einsum``)."""
+    from repro_torch.models.layers import bf16_full_reduction
+
     t0 = time.perf_counter()
-    reduced_archs = lm_reduced_archs(torch, np, dev)
-    t1 = time.perf_counter()
-    blocks = lm_blocks(torch, np, dev)
+    with bf16_full_reduction():             # as the port's entry points
+        reduced_archs = lm_reduced_archs(torch, np, dev)
+        t1 = time.perf_counter()
+        blocks = lm_blocks(torch, np, dev)
     t2 = time.perf_counter()
     full = lm_full_width(torch, np, dev, card)
     t3 = time.perf_counter()
@@ -3536,6 +3600,488 @@ def phase_lm(torch, np, dev, card: str) -> dict:
                                           for k, v in seconds.items()))
     return {"card": card, "reduced": reduced_archs, "blocks": blocks,
             "full": full, "fleet": fleet, "seconds": seconds}
+
+
+# -- phase 12: training -------------------------------------------------------------
+
+# (a): the LM training CLI at its defaults (internlm2-1.8b uncut, 20 steps,
+# batch 8 x seq 128, lr 3e-3, remat on); steps 3-20 are timed.
+TRAIN_TIMED_FROM = 2
+BF16_FLOPS_PER_S = 989e12
+# AdamW's bytes a parameter: bf16 param and grad read, f32 moments read
+# and written, the bf16 param written.
+ADAMW_BYTES_PER_PARAM = 2 + 2 + 4 + 4 + 4 + 4 + 2
+TRAIN_TOP_OPS = 10
+# (b): card vs CPU gradients of the ten reduced archs, each leaf held by
+# ``repro_torch.train.grad.hold_leaf`` given the CPU's own move of that
+# leaf when 1% of its embedding entries move one bf16 ulp (the CPU tests'
+# rule against the JAX package, tests/_lm_parity.py); the loss within
+# TRAIN_LOSS_REL.
+TRAIN_SPREAD_SEEDS = 4
+TRAIN_LOSS_REL = 1e-3
+# (c): a reduced internlm2 through the trainer at the CLI's settings, a
+# StepFailure at step 10 with checkpoints every 4 steps (it resumes from
+# step 8 and redoes 8 and 9), against an uninterrupted run: every loss
+# within TRAIN_RESUME_REL (the card's atomics make reruns differ in bits).
+TRAIN_RESUME = dict(steps=20, fail_at=10, ckpt_every=4)
+TRAIN_RESUME_REL = 1e-2
+# (d): the GCN as examples/train_gcn.py trains it, on the dataset at its
+# published widths, hidden 64, through impl="reference".  The first
+# step's gradients, on the card and on the CPU in f32, are each held
+# against an f64 plain GCN on the CPU (torch.sparse over the normalized
+# adjacency) within gcn_grad_limit(nnz) of max|f64 grad|: an f32 sum over
+# n terms in one order or another rounds by about sqrt(n) ulp of its
+# terms' size, and the backward sums over the graph's nnz edges.
+def gcn_grad_limit(nnz: int) -> float:
+    return 2.0 ** -23 * math.sqrt(nnz)
+
+
+GCN_TRAIN = dict(steps=100, fail_at=40, ckpt_every=25, lr=5e-3, warmup=20)
+
+
+def tree_equal(torch, a, b) -> bool:
+    from repro_torch.train.tree import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return [k for k, _ in fa] == [k for k, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def train_full_width(torch, np, dev, card: str, root: str) -> dict:
+    """(a) and the checkpoint half of (c): the LM training CLI at its
+    defaults on the card, then an explicit ``save_async`` of the trained
+    state restored bit-equal, then one step profiled."""
+    import gc
+    import shutil
+
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli = lm_train.main(["--ckpt-dir", os.path.join(root, "cli")])
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    report, state, cfg = cli["report"], cli["state"], cli["cfg"]
+    shutil.rmtree(os.path.join(root, "cli"), ignore_errors=True)
+    n = cli["n_params"]
+    batch, seq = 8, 128
+    tokens = batch * seq
+    check(report.steps_done == 20 and report.restarts == 0,
+          "phase 12: the CLI did not run its 20 steps")
+    check(bool(np.isfinite(report.losses).all())
+          and report.losses[-1] < report.losses[0],
+          f"phase 12: the loss did not fall ({report.losses[0]:.4f} -> "
+          f"{report.losses[-1]:.4f})")
+    timed = [t * 1e3 for t in report.step_times[TRAIN_TIMED_FROM:]]
+    step_ms = statistics.median(timed)
+    flops = 8 * n * tokens          # 6NT for forward + backward, 2NT remat
+    adamw_bytes = ADAMW_BYTES_PER_PARAM * n
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+
+    # a checkpoint of the full-width state, saved and restored bit-equal
+    path = os.path.join(root, "full")
+    t1 = time.perf_counter()
+    thread = ckpt.save_async(path, 20, state)
+    snapshot_s = time.perf_counter() - t1
+    thread.join()
+    ckpt.wait_pending()
+    write_s = time.perf_counter() - t1
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    t2 = time.perf_counter()
+    restored, step = ckpt.restore(path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t2
+    equal = step == 20 and tree_equal(torch, restored, state)
+    del restored
+    shutil.rmtree(path, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(equal, "phase 12: the restored full-width checkpoint differs")
+
+    # one more step, profiled (the update is in place: after the check)
+    step_fn = build_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=5,
+                                                total_steps=20), device=dev)
+    batch_t = token_batch(cfg.vocab, batch, seq, 0, 20)
+    params, opt = state["params"], state["opt"]
+
+    def one_step():
+        step_fn(params, opt, batch_t)
+
+    busy = device_busy(torch, one_step)
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:TRAIN_TOP_OPS]
+    print(f"phase 12: {cfg.name} ({n / 1e9:.3f} B params) training CLI, "
+          f"batch {batch} x seq {seq}: loss {report.losses[0]:.4f} -> "
+          f"{report.losses[-1]:.4f} over {report.steps_done} steps; median "
+          f"step {step_ms:.3f} ms over steps {TRAIN_TIMED_FROM + 1}-20 "
+          f"({tokens / step_ms * 1e3:.0f} tokens/s); bound {bound_ms:.3f} "
+          f"ms a step (FLOPs {flops_ms:.3f} ms: 8 x N x tokens / 989 "
+          f"TFLOP/s; AdamW bytes {bytes_ms:.3f} ms: {ADAMW_BYTES_PER_PARAM} "
+          f"B a param / 3.35 TB/s); device busy {busy_ms:.3f} ms a step; "
+          f"peak memory {peak / 2**30:.2f} GiB; CLI {cli_s:.1f} s; {card}")
+    print("phase 12: train step's leading device ops (ms): "
+          + "; ".join(f"{k[:90]} {v:.3f}" for k, v in top))
+    print(f"phase 12: checkpoint of the full-width state "
+          f"({state_bytes / 1e9:.2f} GB): save_async returned after "
+          f"{snapshot_s:.1f} s (host snapshot), written after {write_s:.1f} "
+          f"s, restored in {restore_s:.1f} s, bit-equal")
+    del state, params, opt, cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "card": card, "params": n, "batch": batch,
+        "seq": seq, "steps": report.steps_done, "losses": report.losses,
+        "step_ms": [t * 1e3 for t in report.step_times],
+        "median_step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "bound_ms": bound_ms, "bound_by": ("operations" if flops_ms >= bytes_ms
+                                           else "bytes"),
+        "flops_bound_ms": flops_ms, "adamw_bytes_bound_ms": bytes_ms,
+        "busy_ms": busy_ms, "top_ops_ms": dict(top),
+        "peak_memory_bytes": peak, "cli_s": cli_s,
+        "checkpoint": {"bytes": state_bytes, "snapshot_s": snapshot_s,
+                       "write_s": write_s, "restore_s": restore_s,
+                       "bit_equal": equal},
+    }
+
+
+def train_reduced_grads(torch, np, dev) -> dict:
+    """(b): one train step's loss and gradients of each reduced arch on the
+    card against the port on the CPU, from one state carried across, with
+    bf16 reductions in f32 (the entry points' setting, gated) and at
+    torch's default (printed)."""
+    from repro_torch.configs import get_config, list_archs, reduced
+    from repro_torch.models import lm
+    from repro_torch.models.layers import bf16_full_reduction
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.grad import hold_leaf, leaf_spread
+    from repro_torch.train.tree import flatten_with_paths
+
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in list_archs():
+        cfg = reduced(get_config(arch))
+        p_cpu = lm.init_lm(cfg, torch.Generator().manual_seed(SEED), cpu)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))
+        memory = None
+        if cfg.frontend_tokens:
+            memory = torch.as_tensor(rng.standard_normal(
+                (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+            ).to(torch.bfloat16)
+
+        def grads(p, d):
+            fn = value_and_grad(lambda q: lm.lm_loss(
+                q, cfg, tokens.to(d), None if memory is None
+                else memory.to(d), remat=True))
+            loss, g = fn(p)
+            return float(loss), {k: v.float().cpu()
+                                 for k, v in flatten_with_paths(g)}
+
+        loss, want = grads(p_cpu, cpu)
+        draws = []
+        for s in range(TRAIN_SPREAD_SEEDS):
+            bits = p_cpu["embed"].view(torch.int16).clone()
+            hit = torch.as_tensor(
+                np.random.default_rng(s).random(tuple(bits.shape)) < 0.01)
+            bits[hit] += 1
+            draws.append(grads(dict(p_cpu, embed=bits.view(torch.bfloat16)),
+                               cpu)[1])
+        spread = {k: leaf_spread(want[k], [d[k] for d in draws])
+                  for k in want}
+        p_dev = lm_to(torch, p_cpu, dev)
+        rec = {}
+        with bf16_full_reduction():         # as the port's train step
+            f32_reductions = grads(p_dev, dev)
+        default = reduced_precision_allowed(torch)
+        for label, (got_loss, got) in (("f32_reductions", f32_reductions),
+                                       ("torch_default", grads(p_dev, dev))):
+            held = {k: hold_leaf(got[k], want[k], spread[k]) for k in want}
+            worst = max(held, key=lambda k: held[k]["err"] / held[k]["bar"])
+            rec[label] = {"loss_rel": abs(got_loss - loss) / abs(loss),
+                          "worst_leaf": worst,
+                          "worst": held[worst],
+                          "cos_held": sum(h["test"] == "cos"
+                                          for h in held.values()),
+                          "over": sum(not h["ok"] for h in held.values())}
+        main = rec["f32_reductions"]
+        w = main["worst"]
+        print(f"phase 12: {arch}: card vs CPU loss rel "
+              f"{main['loss_rel']:.2e}; gradients worst {w['test']} "
+              f"{w['err']:.3e} at {main['worst_leaf']} (bar {w['bar']:.3e}, "
+              f"norm ratio {w['norm_ratio']:.4f}), {main['cos_held']} of "
+              f"{len(want)} leaves held by direction, {main['over']} over "
+              f"their bars; with bf16 reduced-precision reductions "
+              f"allowed={default} (torch's default, not gated): loss rel "
+              f"{rec['torch_default']['loss_rel']:.2e}, worst "
+              f"{rec['torch_default']['worst']['test']} "
+              f"{rec['torch_default']['worst']['err']:.3e} "
+              f"({rec['torch_default']['over']} over)")
+        check(main["loss_rel"] <= TRAIN_LOSS_REL and main["over"] == 0,
+              f"phase 12: {arch}: card gradients disagree with the CPU")
+        out[arch] = dict(rec, loss=loss,
+                         max_spread=max(v[0] for v in spread.values()))
+    return out
+
+
+def lm_train_run(torch, cfg, dev, root: str, fail_at) -> tuple:
+    """The training CLI's loop (its AdamW and trainer) on ``cfg``,
+    checkpoints every TRAIN_RESUME["ckpt_every"] steps and a StepFailure
+    at ``fail_at``: (final state, report).  Each step draws the batch of
+    its own step number (``token_batch`` is deterministic in (seed,
+    step)), so a resumed run sees the batches the uninterrupted one saw;
+    the CLI, as the reference's, takes the next batch of its stream
+    instead, and a restart shifts the data."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.train import (AdamWConfig, StepFailure, TrainerConfig,
+                                   adamw_init, run)
+
+    steps = TRAIN_RESUME["steps"]
+    params = lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = build_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=5,
+                                             total_steps=steps), device=dev)
+
+    def step_fn(state, _batch):
+        batch = token_batch(cfg.vocab, 8, 128, 0, int(state["opt"].step))
+        p, o, m = step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, {k: float(v) for k, v in m.items()}
+
+    fired = {"done": False}
+
+    def hook(s):
+        if s == fail_at and not fired["done"]:
+            fired["done"] = True
+            raise StepFailure("injected node loss")
+
+    tcfg = TrainerConfig(total_steps=steps, ckpt_dir=root,
+                         ckpt_every=TRAIN_RESUME["ckpt_every"], log_every=100)
+    state, report = run(tcfg, {"params": params, "opt": adamw_init(params)},
+                        step_fn, iter(lambda: None, 1), failure_hook=hook,
+                        log=lambda *_: None)
+    return state, report
+
+
+def train_resume(torch, np, dev, root: str) -> dict:
+    """(c): a run with a StepFailure resumes from its checkpoint and ends
+    within TRAIN_RESUME_REL of an uninterrupted run."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config("internlm2-1.8b"))
+    cfg = dc.replace(cfg, loss_chunk=min(cfg.loss_chunk, 128))
+    _, clean = lm_train_run(torch, cfg, dev, os.path.join(root, "clean"),
+                            None)
+    _, failed = lm_train_run(torch, cfg, dev, os.path.join(root, "failed"),
+                             TRAIN_RESUME["fail_at"])
+    # the failed run redoes the steps after its last checkpoint: its
+    # losses are the clean run's up to the failure, then again from there
+    fail = TRAIN_RESUME["fail_at"]
+    redo = fail % TRAIN_RESUME["ckpt_every"]
+    want = clean.losses[:fail] + clean.losses[fail - redo:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(failed.losses, want))
+    print(f"phase 12: {cfg.name} through the trainer, StepFailure at step "
+          f"{TRAIN_RESUME['fail_at']}, checkpoints every "
+          f"{TRAIN_RESUME['ckpt_every']}: restarts {failed.restarts}, "
+          f"{len(failed.losses)} steps run ({redo} redone), final loss "
+          f"{failed.losses[-1]:.6f} vs {clean.losses[-1]:.6f} uninterrupted; "
+          f"worst loss rel after the resume {worst:.3e} (limit "
+          f"{TRAIN_RESUME_REL})")
+    check(failed.restarts == 1 and clean.restarts == 0
+          and len(failed.losses) == len(want),
+          "phase 12: the failed run did not resume from its checkpoint")
+    check(worst <= TRAIN_RESUME_REL,
+          f"phase 12: the resumed run ends away from the uninterrupted one "
+          f"({worst:.3e})")
+    return {"arch": cfg.name, "restarts": failed.restarts, "redone": redo,
+            "losses_clean": clean.losses, "losses_resumed": failed.losses,
+            "worst_rel": worst, "limit": TRAIN_RESUME_REL}
+
+
+def gcn_grads_f64(torch, np, a, features, labels, params) -> tuple:
+    """The loss and gradients of a plain GCN in f64 on the CPU, written
+    apart from the port: each layer ``A (x W + b)`` with ``A`` the
+    normalized adjacency ``a`` (scipy) as a torch CSR tensor, ReLU between
+    layers, the mean NLL of ``labels``."""
+    import scipy.sparse as sp
+
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    csr = sp.csr_matrix(a, dtype=np.float64)
+    with warnings.catch_warnings():     # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        adj = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr).long(),
+            torch.as_tensor(csr.indices).long(), torch.as_tensor(csr.data),
+            size=csr.shape)
+    x0 = torch.as_tensor(features).double()
+    target = torch.as_tensor(labels).long()[:, None]
+
+    def loss(p):
+        x = x0
+        for i in range(len(p)):
+            x = adj @ (x @ p[f"layer_{i}"]["w"] + p[f"layer_{i}"]["b"])
+            if i < len(p) - 1:
+                x = torch.relu(x)
+        return -torch.log_softmax(x, -1).gather(1, target).mean()
+
+    value, grads = value_and_grad(loss)(
+        tree_map(lambda t: t.detach().double(), params))
+    return float(value), grads
+
+
+def train_gcn(torch, np, data, cfg, graph, dev, card: str, root: str,
+              dataset: str) -> dict:
+    """(d): examples/train_gcn.py's loop on the card: AdamW over the
+    autograd gradient of ``gcn_loss`` through ``impl="reference"``, the
+    trainer with checkpoints and an injected failure; the first step's
+    gradients against the CPU's, and the kernel impls refusing gradients
+    on the card."""
+    from repro_torch.models.gcn import gcn_accuracy, gcn_loss, init_params
+    from repro_torch.train import (AdamWConfig, StepFailure, TrainerConfig,
+                                   adamw_init, adamw_update, run,
+                                   value_and_grad)
+    from repro_torch.train.grad import rel_error
+    from repro_torch.train.tree import flatten_with_paths
+
+    check(cfg.spmm_impl == "reference", "phase 12: the GCN trains through "
+          "impl='reference'")
+    # learnable labels: 2-hop aggregated feature argmax (examples/train_gcn.py)
+    a = data.adj_norm.to_scipy()
+    labels = np.argmax(np.asarray(a @ (a @ data.features[:, :cfg.out_dim])),
+                       axis=1).astype(np.int32)
+    cpu = torch.device("cpu")
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+    feats = {cpu: torch.as_tensor(data.features),
+             dev: torch.as_tensor(data.features, device=dev)}
+    lab = {cpu: torch.as_tensor(labels).long(),
+           dev: torch.as_tensor(labels, device=dev).long()}
+
+    def loss_fn(d):
+        return lambda p: gcn_loss(p, graph, feats[d], lab[d], cfg, device=d)
+
+    loss_c, g_cpu = value_and_grad(loss_fn(cpu))(p_cpu)
+    params = lm_to(torch, p_cpu, dev)
+    loss_d, g_dev = value_and_grad(loss_fn(dev))(params)
+    t0 = time.perf_counter()
+    loss_64, g_64 = gcn_grads_f64(torch, np, a, data.features, labels, p_cpu)
+    f64_s = time.perf_counter() - t0
+    g_64 = dict(flatten_with_paths(g_64))
+    bar = gcn_grad_limit(graph.pre.ell.nnz)
+    grad_rel = {side: max(rel_error(x, g_64[k])
+                          for k, x in flatten_with_paths(g))
+                for side, g in (("card", g_dev), ("cpu", g_cpu))}
+    loss_rel = {side: abs(float(x) - loss_64) / abs(loss_64)
+                for side, x in (("card", loss_d), ("cpu", loss_c))}
+    want = dict(flatten_with_paths(g_cpu))
+    card_vs_cpu = max(rel_error(x, want[k])
+                      for k, x in flatten_with_paths(g_dev))
+
+    kernel_cfg = dataclasses.replace(cfg, spmm_impl="cuda")
+    try:
+        value_and_grad(lambda p: gcn_loss(p, graph, feats[dev], lab[dev],
+                                          kernel_cfg, device=dev))(params)
+        refused = False
+    except RuntimeError as e:
+        refused = "has no backward" in str(e)
+
+    opt_cfg = AdamWConfig(lr=GCN_TRAIN["lr"], total_steps=GCN_TRAIN["steps"],
+                          warmup_steps=GCN_TRAIN["warmup"])
+    grad = value_and_grad(loss_fn(dev))
+
+    def step_fn(state, _batch):
+        loss, g = grad(state["params"])
+        p, o, m = adamw_update(opt_cfg, g, state["opt"], state["params"])
+        return {"params": p, "opt": o}, {"loss": float(loss),
+                                         **{k: float(v) for k, v in m.items()}}
+
+    fired = {"done": False}
+
+    def hook(s):
+        if s == GCN_TRAIN["fail_at"] and not fired["done"]:
+            fired["done"] = True
+            raise StepFailure("injected node loss")
+
+    tcfg = TrainerConfig(total_steps=GCN_TRAIN["steps"],
+                         ckpt_dir=os.path.join(root, "gcn"),
+                         ckpt_every=GCN_TRAIN["ckpt_every"],
+                         log_every=GCN_TRAIN["ckpt_every"])
+    t0 = time.perf_counter()
+    state, report = run(tcfg, {"params": params, "opt": adamw_init(params)},
+                        step_fn, iter(lambda: None, 1), failure_hook=hook,
+                        log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        acc = float(gcn_accuracy(state["params"], graph, feats[dev], lab[dev],
+                                 cfg, device=dev))
+    step_ms = statistics.median(t * 1e3 for t in report.step_times)
+    busy = device_busy(torch, lambda: step_fn(state, None))
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:TRAIN_TOP_OPS]
+    print(f"phase 12: GCN on {dataset} ({graph.n_nodes} nodes, widths "
+          f"{cfg.in_dim}-{cfg.hidden_dim}-{cfg.out_dim}, impl reference): "
+          f"loss {report.losses[0]:.4f} -> {report.losses[-1]:.4f} over "
+          f"{len(report.losses)} steps, train accuracy {acc:.3f}, median "
+          f"step {step_ms:.3f} ms (device busy {sum(busy.values()):.3f} ms),"
+          f" restarts {report.restarts}, {wall:.1f} s; first step against "
+          f"f64 on the CPU ({f64_s:.1f} s): card loss rel "
+          f"{loss_rel['card']:.2e}, gradients worst rel "
+          f"{grad_rel['card']:.3e}; CPU f32 loss rel {loss_rel['cpu']:.2e},"
+          f" gradients worst rel {grad_rel['cpu']:.3e} (limit {bar:.3e} at "
+          f"{graph.pre.ell.nnz} nnz); card vs CPU {card_vs_cpu:.3e}; the "
+          f"cuda impl refuses gradients: {refused}; {card}")
+    print("phase 12: GCN step's leading device ops (ms): "
+          + "; ".join(f"{k[:90]} {v:.3f}" for k, v in top))
+    check(report.restarts == 1 and report.losses[-1] < report.losses[0]
+          and bool(np.isfinite(report.losses).all()),
+          "phase 12: GCN training did not resume or its loss did not fall")
+    for side in ("card", "cpu"):
+        check(grad_rel[side] <= bar and loss_rel[side] <= bar,
+              f"phase 12: GCN gradients ({side}, f32) disagree with f64 "
+              f"({grad_rel[side]:.3e}, limit {bar:.3e})")
+    check(refused, "phase 12: the cuda impl took gradients")
+    return {"dataset": dataset, "card": card, "steps": GCN_TRAIN["steps"],
+            "losses": report.losses, "train_accuracy": acc,
+            "median_step_ms": step_ms, "restarts": report.restarts,
+            "busy_ms": sum(busy.values()), "top_ops_ms": dict(top),
+            "grad_rel_vs_f64": grad_rel, "grad_limit": bar,
+            "loss_rel_vs_f64": loss_rel, "card_vs_cpu": card_vs_cpu,
+            "f64_s": f64_s,
+            "wall_s": wall}
+
+
+def phase_train(torch, np, data, cfg, graph, dev, card: str,
+                dataset: str) -> dict:
+    """Phase 12: training on the card (no TPU kernel lies on this path)."""
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=build) as root:
+        t0 = time.perf_counter()
+        full = train_full_width(torch, np, dev, card, root)
+        t1 = time.perf_counter()
+        grads = train_reduced_grads(torch, np, dev)
+        t2 = time.perf_counter()
+        resume = train_resume(torch, np, dev, root)
+        t3 = time.perf_counter()
+        gcn = train_gcn(torch, np, data, cfg, graph, dev, card, root, dataset)
+        t4 = time.perf_counter()
+    seconds = {"full": t1 - t0, "grads": t2 - t1, "resume": t3 - t2,
+               "gcn": t4 - t3}
+    print("phase 12: seconds " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
+    return {"card": card, "full": full, "grads": grads, "resume": resume,
+            "gcn": gcn, "seconds": seconds}
 
 
 def run(args) -> int:
@@ -3562,14 +4108,12 @@ def run(args) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 GEMMs reduce in f32, as the reference's do (phase 11)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache_dir:
         return drive(torch, np, args, cache_dir)
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-11 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-12 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -3639,6 +4183,10 @@ def drive(torch, np, args, cache_dir: str) -> int:
     t11 = time.perf_counter()
     lm_phase = phase_lm(torch, np, dev, card)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    t12 = time.perf_counter()
+    train_phase = phase_train(torch, np, data, cfg, graph, dev, card,
+                              args.dataset)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -3718,6 +4266,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(json.dumps({"fleet": dict(fleet, card=card, settings=SERVE)}))
     print(json.dumps({"serving_mesh": dict(serving_mesh, settings=SERVE)}))
     print(json.dumps({"lm": lm_phase}))
+    print(json.dumps({"train": train_phase}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,2 +1,2 @@
-"""Mesh planning, the sharded SpMM's collectives, the traffic ledger and
-the sharding policy (``policy``)."""
+"""Mesh planning, the sharded SpMM's collectives, the traffic ledger, the
+sharding policy (``policy``) and the straggler monitor (``straggler``)."""

@@ -22,8 +22,12 @@ counts the calls per collective and way.
 
 :class:`CollectiveLedger` records the modeled bytes of every dispatch,
 host-side, with the reference's exact formulas, so the two packages'
-ledgers can be compared entry for entry.  The reference's
-``masked_psum_mean`` serves its trainer only (ROADMAP A14).
+ledgers can be compared entry for entry.
+
+:func:`masked_psum_mean` is the gradient-averaging primitive behind
+straggler dropping (``repro_torch.dist.straggler``, the trainer): a
+dropped replica contributes zero weight and the mean renormalizes over
+the replicas that remain.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -141,6 +145,30 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     _count("all_reduce", group, t)
     dist.all_reduce(t, group=group)
     return t
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (in place); ``group=None`` is one
+    replica, the identity."""
+    return t if group is None else all_reduce(t, group)
+
+
+def masked_psum_mean(tree: Any, group, alive) -> Any:
+    """Mean of ``tree`` over ``group``'s ranks, weighted by ``alive``.
+
+    ``alive`` is this rank's scalar weight (1.0 = contribute, 0.0 =
+    dropped).  The denominator is the live-replica count, clamped to 1 so
+    an all-dropped step yields zeros rather than NaNs.  ``group=None`` is
+    one replica.
+    """
+    from repro_torch.train.tree import leaves, tree_map  # deferred: no cycle
+
+    first = leaves(tree)
+    device = first[0].device if first else None
+    alive = torch.as_tensor(alive, dtype=torch.float32, device=device)
+    n_alive = torch.clamp(psum(alive.clone(), group), min=1.0)
+    return tree_map(lambda g: psum(g * alive.to(g.dtype), group)
+                    / n_alive.to(g.dtype), tree)
 
 
 def reduce_scatter_rows(t: torch.Tensor, group) -> torch.Tensor:

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import bf16_full_reduction
 from repro_torch.models.lm import forward, init_lm
 from repro_torch.runtime.queue import BucketEstimator
 from repro_torch.runtime.scheduler import BatchProfile
@@ -357,7 +358,8 @@ class _EagerLm:
         self.params, self.cfg = params, cfg
 
     def __call__(self, tokens: torch.Tensor, rows: List[int]) -> np.ndarray:
-        logits = forward(self.params, self.cfg, tokens)
+        with bf16_full_reduction():
+            logits = forward(self.params, self.cfg, tokens)
         return logits[torch.arange(len(rows)), torch.as_tensor(rows)].numpy()
 
 
@@ -371,13 +373,14 @@ class _CapturedLm:
                  device: torch.device, pool, side):
         self.tokens = torch.zeros(shape, dtype=torch.int64, device=device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            forward(params, cfg, self.tokens)
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            self.out = forward(params, cfg, self.tokens)
+        with bf16_full_reduction():   # the GEMMs are chosen at capture
+            with torch.cuda.stream(side):
+                forward(params, cfg, self.tokens)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self.out = forward(params, cfg, self.tokens)
         self.replays = 0
 
     def __call__(self, tokens: torch.Tensor, rows: List[int]) -> np.ndarray:

@@ -179,6 +179,19 @@ def _check_tensor(name: str, t: torch.Tensor, dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _no_autograd(name: str, *tensors) -> None:
+    """Refuse operands that need a gradient: the kernels have no backward
+    (nor do the reference's Pallas kernels), and on the CPU the plain
+    versions would differentiate silently where the card could not."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: the kernel impls ('cuda', "
+            f"'cuda_sparse', fused layers) run without autograd on every "
+            f"device; differentiate through impl='reference', or call it "
+            f"under torch.no_grad()")
+
+
 def _check_ell(cols, vals, scales) -> torch.device:
     """ELL table + int8 scales; returns the device.  ``scales`` goes with
     int8 values and only with them."""
@@ -488,6 +501,7 @@ def spmm_ell_dense_grid(
     L2-sized column slabs (:func:`slab_width`).  ``block_f`` only checks
     the padding; the dispatcher passes the real width rounded to 16 bytes.
     """
+    _no_autograd("spmm_ell_dense_grid", cols, vals, dense, scales)
     dev = _check_ell(cols, vals, scales)
     _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
     r = cols.shape[0]
@@ -531,6 +545,7 @@ def spmm_ell_sparse_grid(
     """Sub-row products over the (rb, kb) steps of a block-skipping schedule,
     given as :func:`schedule_tile_bitmaps` of its steps; the kernel reads
     the columns as :func:`spmm_ell_dense_grid`'s does."""
+    _no_autograd("spmm_ell_sparse_grid", cols, vals, dense, scales)
     dev = _check_ell(cols, vals, scales)
     _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
     _check_tensor("tile_bitmaps", tile_bitmaps, torch.int32, 2, dev)
@@ -637,6 +652,7 @@ def spmm_ell_fused_dense_grid(
     ``cols`` as int32 tensors on the device, which the kernel needs on CUDA
     (the dispatcher builds it once per graph and ``K``).
     """
+    _no_autograd("spmm_ell_fused_dense_grid", cols, vals, x, w, b, scales)
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
                                block_f, k_real, scales, cast_xw)
     r, tau = cols.shape
@@ -699,6 +715,7 @@ def spmm_ell_fused_sparse_grid(
     ``kb_ids`` comes from ``plan_fused_k_schedule``; ``-1`` entries are
     no-op steps (the sharded path pads per-shard schedules with them).
     """
+    _no_autograd("spmm_ell_fused_sparse_grid", cols, vals, x, w, b, scales)
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
                                block_f, k_real, scales, cast_xw)
     _check_tensor("kb_ids", kb_ids, torch.int32, 1, dev)

@@ -1,5 +1,5 @@
-"""Carry the reference's parameters (GCN and LM) and LM caches across as
-the port's tensors."""
+"""Carry the reference's parameters (GCN and LM), LM caches and AdamW
+states across as the port's tensors."""
 
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def _leaf(value, dev: torch.device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.array(arr).view(np.int16))
         return bits.view(torch.bfloat16).to(dev)
-    return torch.as_tensor(np.ascontiguousarray(arr), device=dev)
+    return torch.as_tensor(np.array(arr, order="C"), device=dev)  # keeps 0-d
 
 
 def _tree(tree: Any, dev: torch.device) -> Any:
@@ -63,3 +63,18 @@ def lm_cache_from_numpy(
     or a ``decode_step`` result, as numpy arrays) -> the port's cache of
     the same layout and dtypes on ``device`` (``"cuda"`` unless given)."""
     return _tree(tree, resolve_device(device))
+
+
+def adamw_state_from_numpy(
+    state: Any, device: Optional[Union[str, torch.device]] = None,
+):
+    """The reference's ``AdamWState`` (``repro.train.adamw_init`` or an
+    ``adamw_update`` result, as numpy arrays: any ``(step, mu, nu)``) ->
+    the port's ``AdamWState`` on ``device`` (``"cuda"`` unless given): the
+    int32 step counter and the moment trees at their own dtypes."""
+    from repro_torch.train.optimizer import AdamWState
+
+    dev = resolve_device(device)
+    step, mu, nu = state
+    return AdamWState(step=_leaf(step, dev), mu=_tree(mu, dev),
+                      nu=_tree(nu, dev))

@@ -19,10 +19,18 @@ f32, so the bf16 operand is widened here first.  Scores are rounded to
 bf16 by their einsum before the f32 scale, probabilities are cast to the
 query dtype before the PV product.  Every matrix product is a plain
 ``torch`` op: the reference computes them outside any Pallas kernel.
+
+Rematerialization follows the reference's ``jax.checkpoint`` sites: under
+autograd, :func:`remat` runs a piece of the forward through
+``torch.utils.checkpoint`` (each query block of the blocked attention
+here; the SSM time chunks, the loss chunks and, under ``remat=True``, the
+body periods in ``ssm`` and ``lm``), so its activations are recomputed in
+the backward pass instead of kept.  It changes memory, not values.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -35,6 +43,33 @@ Params = Dict[str, torch.Tensor]
 Device = Union[None, str, torch.device]
 
 NEG_INF = -1e30      # the reference's mask fill
+
+
+@contextlib.contextmanager
+def bf16_full_reduction():
+    """bf16 matrix products reduce in f32 inside, as the reference's do
+    (cuBLAS may otherwise reduce split-K partials in bf16); the caller's
+    setting after.  The LM's entry points run under it."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass when autograd records
+    it (``torch.utils.checkpoint``, non-reentrant); a plain call when it
+    does not.  The forward draws no random numbers, so no RNG state is
+    kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +219,13 @@ def _sdpa_blocked(
     """Query-blocked attention: the (S_q, S_k) scores exist one q-block
     at a time, bounding attention memory by B x H x q_block x S_k."""
     blk = ATTN_Q_BLOCK
-    outs = []
-    for i in range(0, q.shape[1], blk):
-        qp = q_pos[i:i + blk]
-        mask = _causal_mask(qp, k_pos, window) if causal else None
-        outs.append(_sdpa(q[:, i:i + blk], k, v, mask))
+
+    def one_block(q_b, qp_b):
+        mask = _causal_mask(qp_b, k_pos, window) if causal else None
+        return _sdpa(q_b, k, v, mask)
+
+    outs = [remat(one_block, q[:, i:i + blk], q_pos[i:i + blk])
+            for i in range(0, q.shape[1], blk)]
     return torch.cat(outs, dim=1)
 
 

@@ -32,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.policy import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.train.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -48,19 +49,23 @@ def _parse(entry: str) -> Tuple[str, Optional[str]]:
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn: Callable, *trees):
-    """``fn`` over the leaves of same-structured dict/list trees."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
-
-
 def period_slice(tree, i: int):
     """Period ``i`` of a tree stacked over a leading period axis (views)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack_periods(tree, n: int) -> List[Params]:
+    """Every period of a stacked tree, as views from one ``unbind`` per
+    leaf: under autograd each leaf's gradient is then stacked once, where
+    ``n`` :func:`period_slice` calls would each add a full-size gradient."""
+    split: List[Tuple[torch.Tensor, ...]] = []
+    tree_map(lambda t: split.append(t.unbind(0)), tree)
+
+    def period(i: int) -> Params:
+        parts = iter(split)
+        return tree_map(lambda _: next(parts)[i], tree)
+
+    return [period(i) for i in range(n)]
 
 
 def _stacked(n: int, make: Callable[[int], Params]) -> Params:
@@ -238,8 +243,7 @@ def encode(params: Params, cfg: ArchConfig,
     enc_cfg = _dense(cfg)
     x = memory_embeds
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.encoder_layers):
-        blk = period_slice(params["encoder"], i)
+    for blk in unstack_periods(params["encoder"], cfg.encoder_layers):
         h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
         out, _ = L.attention(blk["mix"], h, enc_cfg, positions, causal=False)
         x = x + out @ blk["mix"]["wo"]
@@ -257,8 +261,14 @@ def forward_hidden(
     cfg: ArchConfig,
     tokens: torch.Tensor,                       # (B, S) integer ids
     memory: Optional[torch.Tensor] = None,      # frontend embeds (B, T, D)
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Full-sequence causal forward -> final-norm hidden states (B, S, D)."""
+    """Full-sequence causal forward -> final-norm hidden states (B, S, D).
+
+    ``remat``: each body period is recomputed in the backward pass
+    (``layers.remat``), as the reference's ``jax.checkpoint`` of its scan
+    body, so autograd keeps one activation per period.
+    """
     x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     if cfg.encoder_layers and memory is not None:
@@ -268,13 +278,16 @@ def forward_hidden(
         x, _ = _apply_block(_dense(cfg), "attn+mlp", blk, x, positions,
                             memory, None, None)
 
-    for pi in range(n_body_periods(cfg)):
-        period = period_slice(params["blocks"], pi)
+    def body(h, period, memory):
         for i, kind in enumerate(cfg.pattern):
-            x, _ = _apply_block(cfg, kind, period[f"b{i}"], x, positions,
+            h, _ = _apply_block(cfg, kind, period[f"b{i}"], h, positions,
                                 memory, None, None)
-        x = constrain(x, [(("pod", "data"), "model", None),
-                          ("data", "model", None), (None, "model", None)])
+        return constrain(h, [(("pod", "data"), "model", None),
+                             ("data", "model", None), (None, "model", None)])
+
+    for period in unstack_periods(params["blocks"], n_body_periods(cfg)):
+        x = L.remat(body, x, period, memory) if remat else body(
+            x, period, memory)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -290,29 +303,38 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross entropy with a sequence-chunked head (its value;
-    the gradient is ROADMAP A14).
+            memory: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy with a sequence-chunked head.
 
     The head and logsumexp run per chunk of ``cfg.loss_chunk`` positions,
-    bounding the f32 logits by B x chunk x vocab; the final position has
-    no next token and is weighted out.
+    each chunk recomputed in the backward pass (``layers.remat``), which
+    bounds the f32 logits by B x chunk x vocab in either pass; the final
+    position has no next token and is weighted out.  ``remat`` is
+    :func:`forward_hidden`'s.  Its gradient is autograd's
+    (``repro_torch.train.value_and_grad``, ``launch.steps.build_train_step``).
     """
-    x = forward_hidden(params, cfg, tokens, memory)
-    targets = torch.roll(tokens, -1, dims=1)             # y_t = token_{t+1}
+    x = forward_hidden(params, cfg, tokens, memory, remat=remat)
+    targets = torch.roll(tokens, -1, dims=1).long()      # y_t = token_{t+1}
     b, s, _ = x.shape
-    w_head = head(params, cfg).to(x.dtype)
+    w_head = head(params, cfg)
     chunk = min(cfg.loss_chunk, s)
     if s % chunk:
         raise ValueError("loss_chunk must divide seq_len")
     weight = torch.ones((b, s), dtype=torch.float32, device=x.device)
     weight[:, -1] = 0.0
+
+    def chunk_nll(x_c, y_c, w_c, w_head):
+        logits = (x_c @ w_head.to(x_c.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, y_c[..., None])[..., 0]
+        return ((lse - tgt) * w_c).sum()
+
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
-        logits = (x[:, c0:c0 + chunk] @ w_head).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[:, c0:c0 + chunk, None].long())[..., 0]
-        total = total + ((lse - tgt) * weight[:, c0:c0 + chunk]).sum()
+        sl = slice(c0, c0 + chunk)
+        total = total + L.remat(chunk_nll, x[:, sl], targets[:, sl],
+                                weight[:, sl], w_head)
     return total / (b * (s - 1))
 
 

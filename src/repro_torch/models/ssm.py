@@ -6,23 +6,56 @@ Full-sequence mode (``state=None``) runs the recurrence over time inside;
 single-step mode (state given, S == 1) is the decode step.  State size is
 constant in sequence length.
 
-The reference scans time with ``chunked_scan``, a two-level scan that
-rematerializes chunks in the backward pass; the forward is a plain loop
-over time with the same carries, which is what these blocks run.
+Time runs through :func:`chunked_scan`, the reference's two-level scan:
+a loop over time whose chunks of ``SCAN_CHUNK`` steps are rematerialized
+in the backward pass (``layers.remat``), so the backward keeps one carry
+per chunk instead of one per step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.dist.policy import constrain
-from repro_torch.models.layers import Device, dense_init, normal, silu, softplus
+from repro_torch.models.layers import (Device, dense_init, normal, remat,
+                                       silu, softplus)
 
 Params = Dict[str, torch.Tensor]
+
+SCAN_CHUNK = 64  # two-level remat scan: sqrt-style checkpointing in time
+
+Carry = Tuple[torch.Tensor, ...]
+
+
+def chunked_scan(step: Callable[[Carry, int], Tuple[Carry, torch.Tensor]],
+                 carry: Carry, s: int) -> Tuple[Carry, torch.Tensor]:
+    """``step(carry, t) -> (carry, y_t)`` for ``t < s``: (the last carry,
+    the ``y_t`` stacked along dim 1).
+
+    When ``s`` is a multiple of ``SCAN_CHUNK`` above it (the reference's
+    condition), each chunk of ``SCAN_CHUNK`` steps runs under
+    ``layers.remat``: under autograd only the carries between chunks are
+    kept, and each chunk is recomputed in the backward pass.
+    """
+    def run(t0: int, t1: int, *c):
+        ys = []
+        for t in range(t0, t1):
+            c, y = step(c, t)
+            ys.append(y)
+        return (*c, torch.stack(ys, dim=1))
+
+    if s % SCAN_CHUNK or s <= SCAN_CHUNK:
+        *carry, ys = run(0, s, *carry)
+        return tuple(carry), ys
+    chunks = []
+    for t0 in range(0, s, SCAN_CHUNK):
+        *carry, ys = remat(run, t0, t0 + SCAN_CHUNK, *carry)
+        chunks.append(ys)
+    return tuple(carry), torch.cat(chunks, dim=1)
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -97,14 +130,16 @@ def mamba_block(
     h = (state["ssm"].float() if state is not None
          else torch.zeros((b, d_in, d_state), dtype=torch.float32,
                           device=x.device))
-    ys = []
-    for t in range(s):
+
+    def step(carry, t):
         # discretize per step: the (B, S, d_in, N) tensors never exist
+        h, = carry
         da_t = torch.exp(dt[:, t, :, None] * a)          # (B,d_in,N)
         h = h * da_t + dtx[:, t, :, None] * b_ssm[:, t, None, :]
         h = constrain(h, [(None, "model", None)])
-        ys.append(torch.einsum("bdn,bn->bd", h, c_ssm[:, t]))
-    y = torch.stack(ys, dim=1)                           # (B,S,d_in)
+        return (h,), torch.einsum("bdn,bn->bd", h, c_ssm[:, t])
+
+    (h,), y = chunked_scan(step, (h,), s)                # y (B,S,d_in)
     y = y + xc.float() * p["d_skip"]
     y = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
 
@@ -193,8 +228,9 @@ def mlstm_block(
         m = torch.zeros((b, h), dtype=torch.float32, device=x.device)
     else:
         c, n, m = state["c"], state["n"], state["m"]
-    ys = []
-    for t in range(s):
+
+    def step(carry, t):
+        c, n, m = carry
         q_t, k_t, v_t = q[:, :, t], k[:, :, t], v[:, :, t]
         i_t, f_t = i_pre[:, :, t], f_pre[:, :, t]
         log_f = _log_sigmoid(f_t)
@@ -205,11 +241,12 @@ def mlstm_block(
             v_t[..., :, None] * k_t[..., None, :])
         c = constrain(c, [(None, None, "model", None)])
         n = f_g[..., None] * n + i_g[..., None] * k_t
-        m = m_new
         num = torch.einsum("bhvk,bhk->bhv", c, q_t)
         den = torch.clamp(torch.einsum("bhk,bhk->bh", n, q_t).abs(), min=1.0)
-        ys.append(num / den[..., None])
-    y = torch.stack(ys, dim=1).reshape(b, s, d_in).to(x.dtype)   # (B,S,H,hd)
+        return (c, n, m_new), num / den[..., None]
+
+    (c, n, m), ys = chunked_scan(step, (c, n, m), s)     # ys (B,S,H,hd)
+    y = ys.reshape(b, s, d_in).to(x.dtype)
     og = torch.einsum("bshd,hde->bshe", xh, p["wo_gate"]).reshape(b, s, d_in)
     y = y * silu(og)
     out = (y * silu(z)) @ p["down_proj"]
@@ -260,8 +297,9 @@ def slstm_block(
         c, n, m, h = zeros, zeros, zeros, zeros
     else:
         c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    ys = []
-    for t in range(s):
+
+    def step(carry, t):
+        c, n, m, h = carry
         rec = (h.to(x.dtype) @ p["r"]).float()
         zt = torch.tanh(z_in[:, t] + rec)
         log_f = _log_sigmoid(f_in[:, t])
@@ -271,10 +309,11 @@ def slstm_block(
         f_g = torch.exp(log_f + m - m_new)
         c = constrain(f_g * c + i_g * zt, [(None, "model")])
         n = f_g * n + i_g
-        m = m_new
         h = torch.sigmoid(o_in[:, t]) * c / torch.clamp(n, min=1.0)
-        ys.append(h)
-    y = torch.stack(ys, dim=1).to(x.dtype) @ p["out_proj"]
+        return (c, n, m_new, h), h
+
+    (c, n, m, h), ys = chunked_scan(step, (c, n, m, h), s)
+    y = ys.to(x.dtype) @ p["out_proj"]
     return y, {"c": c, "n": n, "m": m, "h": h}
 
 

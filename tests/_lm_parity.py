@@ -5,6 +5,8 @@ and cross to the port as numpy through ``lm_params_from_numpy``; inputs
 are made from numpy seeds and given to both packages.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from repro.models import lm as jlm
 
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
+from repro_torch.models import lm as tlm
 from repro_torch.models.convert import lm_cache_from_numpy, lm_params_from_numpy
 
 # The bar on logits and block outputs, as a share of max|reference|.
@@ -145,3 +148,96 @@ def signature(tree) -> list:
             dtype = np.asarray(leaf).dtype.name
         sig.append((path, tuple(leaf.shape), dtype))
     return sig
+
+
+# The gradient bar (``repro_torch.train.grad.hold_leaf``): each leaf within
+# 2e-2 of max|reference grad|, or twice the reference's own move where that
+# is larger, up to 0.25; a leaf the reference moves more than that is held
+# by its cosine distance and norm ratio instead.  The reference's own move
+# is the largest over SPREAD_SEEDS draws of 1% of its embedding entries one
+# bf16 ulp up.
+SPREAD_SEEDS = 4
+
+
+def moved_embed(params, seed: int):
+    """The reference's params with 1% of the embedding entries one bf16
+    ulp up (``tests/test_torch_lm.py::test_reference_spread_bounds_the_bar``'s
+    perturbation)."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    bits = np.asarray(params["embed"]).view(np.uint16).copy()
+    bits[rng.random(bits.shape) < 0.01] += 1
+    return dict(params, embed=jnp.asarray(bits.view(ml_dtypes.bfloat16)))
+
+
+@functools.lru_cache(maxsize=None)
+def grad_case(arch: str, seed: int = 1):
+    """The reference's loss and gradients of ``lm_loss(remat=True)`` for
+    the reduced ``arch`` at ``tests/test_models_smoke.py``'s inputs, and
+    each leaf's own move: (loss, {path: f32 grad}, {path: (rel, cos)
+    spread}, params, inputs).  Cached: callers must not change them."""
+    from repro_torch.train.grad import leaf_spread
+    from repro_torch.train.tree import flatten_with_paths
+
+    jcfg, _ = cfgs(arch)
+    params = jlm.init_lm(jcfg, jax.random.PRNGKey(seed))
+    tokens, memory = inputs(jcfg, seed=seed)
+    fn = jax.jit(jax.value_and_grad(
+        lambda p: jlm.lm_loss(p, jcfg, tokens, j_memory(memory), remat=True)))
+
+    def flat(grads):
+        return {k: torch.tensor(f32(v))
+                for k, v in flatten_with_paths(to_numpy(grads))}
+
+    loss, grads = fn(params)
+    want = flat(grads)
+    draws = [flat(fn(moved_embed(params, s))[1]) for s in range(SPREAD_SEEDS)]
+    spread = {k: leaf_spread(want[k], [d[k] for d in draws]) for k in want}
+    return float(loss), want, spread, params, (tokens, memory)
+
+
+# The loss is an f32 mean of bf16-derived logits' NLL: the two packages'
+# roundings move it by up to ~2e-4 of itself at these sizes.
+LOSS_REL = 1e-3
+
+
+@functools.lru_cache(maxsize=None)
+def port_gradients(arch: str, remat: bool = True):
+    """The port's ``(loss, [(path, grad)])`` of ``lm_loss`` at
+    :func:`grad_case`'s weights and inputs.  Cached (``__wrapped__`` is the
+    uncached call)."""
+    from repro_torch.train import value_and_grad
+    from repro_torch.train.tree import flatten_with_paths
+
+    _, _, _, params, (tokens, memory) = grad_case(arch)
+    _, tcfg = cfgs(arch)
+    loss, grads = value_and_grad(
+        lambda p: tlm.lm_loss(p, tcfg, t_tokens(tokens), t_memory(memory),
+                              remat=remat))(port_tree(params))
+    return loss, flatten_with_paths(grads)
+
+
+def gradient_failures(arch: str, got) -> dict:
+    """{path: hold_leaf verdict} of every leaf of ``got`` (the port's
+    ``[(path, grad)]``) that misses its bar against :func:`grad_case`."""
+    from repro_torch.train.grad import hold_leaf
+
+    _, want, spread, _, _ = grad_case(arch)
+    assert [k for k, _ in got] == list(want)
+    held = {k: hold_leaf(g, want[k], spread[k]) for k, g in got}
+    return {k: v for k, v in held.items() if not v["ok"]}
+
+
+def check_arch_gradients(arch: str) -> None:
+    """The port's ``lm_loss`` gradient at ``remat=False`` and ``True``
+    (bit-equal) against :func:`grad_case`'s: the loss within LOSS_REL,
+    every leaf within its bar."""
+    loss = grad_case(arch)[0]
+    got = {remat: port_gradients(arch, remat) for remat in (False, True)}
+    assert torch.equal(got[False][0], got[True][0])
+    for (k, a), (_, b) in zip(got[False][1], got[True][1]):
+        assert torch.equal(a, b), (arch, k)
+    assert abs(float(got[True][0]) - loss) <= LOSS_REL * abs(loss)
+    over = gradient_failures(arch, got[True][1])
+    assert not over, (arch, over)

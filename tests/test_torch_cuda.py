@@ -941,3 +941,107 @@ def test_cuda_lm_servable_captures_and_replays(cuda_device):
         sv.unload()
         assert not sv._executables
         sv.load()
+
+
+# -- training (repro_torch.train, launch.steps.build_train_step) ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-8b"])
+def test_cuda_train_step_matches_the_cpu_and_lowers_the_loss(cuda_device,
+                                                             arch):
+    """A reduced LM's loss and gradients (``lm_loss(remat=True)``) on the
+    card within 2e-2 of each leaf's max|CPU grad| (1e-3 on the loss), from
+    the same weights; four in-place AdamW steps lower the loss."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, adamw_init, value_and_grad
+    from repro_torch.train.tree import flatten_with_paths
+
+    cfg = reduced(get_config(arch))
+    p_cpu = lm.init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_dev = lm.tree_map(lambda t: t.to(cuda_device), p_cpu)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)))
+    grads = {}
+    for key, p, d in (("cpu", p_cpu, "cpu"), ("card", p_dev, cuda_device)):
+        grads[key] = value_and_grad(lambda q: lm.lm_loss(
+            q, cfg, tokens.to(d), remat=True))(p)
+    (want_loss, want), (got_loss, got) = grads["cpu"], grads["card"]
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-3 * float(want_loss)
+    for (k, g), (_, w) in zip(flatten_with_paths(got),
+                              flatten_with_paths(want)):
+        assert g.device.type == "cuda"
+        assert rel_max_err(g, w) <= 2e-2, k
+    step = build_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=1,
+                                             total_steps=10))
+    opt = adamw_init(p_dev)
+    assert opt.step.device.type == "cuda"
+    losses = []
+    for _ in range(4):
+        p_dev, opt, m = step(p_dev, opt, tokens)
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_snapshot_and_bf16_roundtrip(cuda_device, tmp_path):
+    """``save_async`` of card tensors (bf16, f32, int32, an AdamWState)
+    copies them to the host before it returns: an in-place update right
+    after does not reach the file, and ``restore`` puts the saved bits
+    back on the card."""
+    from repro_torch.train import AdamWState
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import flatten_with_paths
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randn(64, 32, generator=g, device=cuda_device)
+    tree = {"params": {"w": w.to(torch.bfloat16), "b": w[0].clone()},
+            "opt": AdamWState(torch.tensor(3, dtype=torch.int32,
+                                           device=cuda_device),
+                              {"w": w.clone()}, {"w": w.abs()})}
+    want = [t.clone() for _, t in flatten_with_paths(tree)]
+    thread = ckpt.save_async(str(tmp_path), 3, tree, shards=2)
+    for _, t in flatten_with_paths(tree):
+        t.add_(1)
+    thread.join()
+    ckpt.wait_pending()
+    restored, step = ckpt.restore(str(tmp_path), tree)
+    assert step == 3
+    for (_, got), w0 in zip(flatten_with_paths(restored), want):
+        assert got.device.type == "cuda" and got.dtype == w0.dtype
+        assert torch.equal(got, w0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_impls_refuse_gradients(cuda_device):
+    """A GCN layer through a kernel impl raises when gradients are
+    required (the kernels have no backward); ``impl="reference"`` trains
+    on the card."""
+    import dataclasses
+
+    from repro_torch.models.gcn import gcn_loss, init_params, plan_for_config
+    from repro_torch.train import value_and_grad
+
+    adj = random_power_law_csr(256, 256, 2000, alpha=2.8, seed=0)
+    feats = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (256, 16)).astype(np.float32), device=cuda_device)
+    labels = torch.as_tensor(np.arange(256) % 4, device=cuda_device)
+    for impl, fused in (("cuda", False), ("cuda_sparse", False),
+                        ("cuda", True)):
+        cfg = GCNConfig(in_dim=16, hidden_dim=8, out_dim=4, spmm_impl=impl)
+        graph = GCNGraph.build(adj, cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             cuda_device)
+        plan = dataclasses.replace(plan_for_config(cfg), fused=fused)
+        with pytest.raises(RuntimeError, match="has no backward"):
+            value_and_grad(lambda p: gcn_loss(p, graph, feats, labels, cfg,
+                                              plan=plan))(params)
+    cfg = GCNConfig(in_dim=16, hidden_dim=8, out_dim=4)
+    graph = GCNGraph.build(adj, cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
+    loss, grads = value_and_grad(lambda p: gcn_loss(p, graph, feats, labels,
+                                                    cfg))(params)
+    assert np.isfinite(float(loss))
+    assert grads["layer_0"]["w"].device.type == "cuda"

@@ -29,6 +29,7 @@ from repro.models import lm as jlm
 
 import repro_torch.fleet as TF
 import repro_torch.runtime as TR
+import repro_torch.train as TT
 from repro_torch.dist import policy as tpolicy
 from repro_torch.dist.topology import abstract_mesh
 from repro_torch.launch import serve as tserve
@@ -142,12 +143,22 @@ def test_prefill_and_serve_steps_match_reference(arch):
         assert lp.rel(got, want) <= BAR
 
 
-def test_steps_raise_for_train_and_mesh():
+def test_train_step_lowers_the_loss_and_mesh_steps_raise():
+    """``step_for(cfg, "train")`` at the reference's defaults (AdamW lr
+    1e-3 after 100 warmup steps): 30 steps on one batch lower the loss.
+    Under a mesh every kind raises naming A13b."""
     _, tcfg = lp.cfgs("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsteps.step_for(tcfg, "train", device="cpu")
+    params = tlm.init_lm(tcfg, torch.Generator().manual_seed(1), "cpu")
+    opt = TT.adamw_init(params)
+    step = tsteps.step_for(tcfg, "train", device="cpu")
+    tokens, _ = lp.inputs(tcfg)
+    losses = []
+    for _ in range(30):
+        params, opt, metrics = step(params, opt, tokens)
+        losses.append(float(metrics["loss"]))
+    assert losses[-1] < losses[0], losses
     mesh = abstract_mesh((2,), ("data",))
-    for kind in ("prefill", "decode"):
+    for kind in ("train", "prefill", "decode"):
         with pytest.raises(NotImplementedError, match="A13b"):
             tsteps.step_for(tcfg, kind, mesh=mesh, device="cpu")
     with pytest.raises(ValueError):

@@ -81,15 +81,18 @@ Phases, in order; any failure exits non-zero:
    pipeline, the static unfused and the static fused plan in interleaved
    rounds (300 at PubMed, 20 at Reddit; each round in the next of their
    orders; plans that run the same layers timed once), each median beside
-   the model's ms and the measured-to-modeled ratio: each chosen forward
-   must be within 10% of the static unfused one.  At Reddit the f32 choice must
+   the model's ms and the measured-to-modeled ratio: the median of each
+   chosen forward's per-round ratio to the static unfused one (both calls
+   of a round adjacent, so the drift between rounds cancels) must be at
+   most 1.10; its interquartile range is printed.  At Reddit the f32 choice must
    be unfused and the model within 0.5x-2x of the chosen and static
    unfused forwards.  At PubMed one engine with ``autoplan=True``,
    ``precision="auto"`` and ``ladder_growth="auto"`` (the registry of
    phase 3, the serving CLI's other defaults) prints each warmed rung's
    plans and precision and the full-graph step's modeled ms per
    precision; its full-graph step, timed against its f32 step over 300
-   interleaved rounds, must be within 10% of it.  It serves 100 queries
+   interleaved rounds, must have a median per-round ratio to it of at
+   most 1.10.  It serves 100 queries
    and 100 batched requests that phase 5 did not, captures nothing after
    warmup and answers as an ``impl="reference"`` engine at the same
    precisions does, within phase 5's limits.
@@ -226,12 +229,35 @@ Phases, in order; any failure exits non-zero:
    step 40, the first step's gradients on the card and on the CPU each
    within 2^-23 sqrt(nnz) of an f64 plain GCN's on the CPU, one step's
    device ops, and a ``cuda`` impl refusing gradients.
+13. The simulator and the examples (no TPU kernel lies on the simulator's
+   path: its group-bys are torch sorts, cumulative sums and uniques):
+   (a) Cora, CiteSeer and PubMed through ``graphs.partition``'s label
+   propagation, ``apply_symmetric_permutation`` (host), and
+   ``sim.compute_block_stats(tile=16)``, ``simulate_flexvector(HWConfig())``
+   and ``simulate_grow(GROWConfig(m=6))`` on the card, then the same on
+   the CPU through the port's own code: the permutation, every
+   ``BlockStats`` array (values and dtypes), Algorithm 2 in both modes
+   and every ``SimResult`` field must be equal.  Prints per dataset the
+   GROW / FlexVector cycle ratio and energy ratio (the simulator's
+   modeled ASIC figures, not card times) and each step's card and CPU
+   seconds, then their geomeans beside the survey's 3.78x / -40.5% (a
+   five-dataset figure).  (b) Under ``--dataset reddit``, Reddit's
+   simulator on the card over phase 1's adjacency (no CPU comparison).
+   (c) ``kernels.ops.flexvector_spmm`` at the dataset's ELL and a
+   64-wide dense operand, f32 / bf16 / int8 with ``skip_empty`` both
+   ways, the launch counts reset before each call: each call must launch
+   its own kernel at its own precision once and nothing else, and agree
+   with that kernel's plain version on the card within phase 2's limits.
+   (d) ``examples/torch_quickstart.py --impl cuda_sparse`` and
+   ``examples/torch_train_gcn.py --inject-failure`` (100 steps) at Cora,
+   each a subprocess on the card, run side by side; each must exit 0.
 
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
 one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
 ``{"sharding": ...}`` line, one ``{"async": ...}`` line, one
 ``{"fleet": ...}`` line, one ``{"serving_mesh": ...}`` line, one
-``{"lm": ...}`` line and one ``{"train": ...}`` line, then as the last
+``{"lm": ...}`` line, one ``{"train": ...}`` line and one ``{"sim": ...}``
+line, then as the last
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
@@ -1496,13 +1522,14 @@ def describe_plan(pplan) -> list:
 
 
 def timed_rounds(torch, fns: dict, rounds: int) -> dict:
-    """Median host ms of each of ``fns`` (name -> callable), called in
-    ``rounds`` interleaved rounds (each call ending in a synchronize)
-    after one warm round.  Round ``i`` calls them in the ``i``-th of
-    their orders (cycling through all of them), so that every callable
-    follows every other one equally often: at PubMed a forward runs 1-6%
-    slower right after the fused one, and a fixed cyclic order put the
-    same plan there in every round."""
+    """Host ms of each of ``fns`` (name -> callable) in each of ``rounds``
+    interleaved rounds (each call ending in a synchronize) after one warm
+    round: name -> the list of its times, entry ``i`` from round ``i``.
+    Round ``i`` calls them in the ``i``-th of their orders (cycling
+    through all of them), so that every callable follows every other one
+    equally often: at PubMed a forward runs 1-6% slower right after the
+    fused one, and a fixed cyclic order put the same plan there in every
+    round."""
     orders = list(itertools.permutations(fns))
     times = {name: [] for name in fns}
     for i in range(1 + rounds):
@@ -1512,7 +1539,17 @@ def timed_rounds(torch, fns: dict, rounds: int) -> dict:
             torch.cuda.synchronize()
             if i:
                 times[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: statistics.median(t) for name, t in times.items()}
+    return times
+
+
+def round_ratios(times: dict, name: str, base: str) -> dict:
+    """The median and interquartile range of ``name``'s time over
+    ``base``'s, round by round.  Both calls of a round are adjacent, so the
+    slow drift of host-bound times between blocks of rounds (12-60% at
+    PubMed) cancels in each ratio, where a ratio of two medians keeps it."""
+    r = [a / b for a, b in zip(times[name], times[base])]
+    q1, _, q3 = statistics.quantiles(r, n=4, method="inclusive")
+    return {"median": statistics.median(r), "q1": q1, "q3": q3}
 
 
 def layer_runs(pplan) -> str:
@@ -1584,10 +1621,11 @@ def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
         runs = {}
         for label, pp in plans.items():
             runs.setdefault(layer_runs(pp), label)
-        medians = timed_rounds(torch, {
+        times = timed_rounds(torch, {
             label: (lambda pp=plans[label]: gcn_forward(
                 params, graph, feats, cfg, plan=pp, device=dev))
             for label in runs.values()}, rounds)
+        medians = {label: statistics.median(t) for label, t in times.items()}
         timed = {}
         for label, pp in plans.items():
             ms = medians[runs[layer_runs(pp)]]
@@ -1599,10 +1637,14 @@ def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
                   f"over {rounds} interleaved rounds (timed as "
                   f"{runs[layer_runs(pp)]}), modeled {modeled:.3f} "
                   f"ms (measured / modeled {ms / modeled:.3f})")
-        limit = PLAN_SLOWER * timed["static_unfused"]["measured_ms"]
-        check(timed["chosen"]["measured_ms"] <= limit, f"{precision}: "
-              f"the chosen forward {timed['chosen']['measured_ms']:.3f} ms "
-              f"is more than {PLAN_SLOWER}x the static unfused one")
+        ratio = round_ratios(times, timed["chosen"]["timed_as"],
+                             timed["static_unfused"]["timed_as"])
+        print(f"phase 6: {precision} chosen / static unfused per round: "
+              f"median {ratio['median']:.4f}, interquartile range "
+              f"{ratio['q1']:.4f}-{ratio['q3']:.4f} (limit {PLAN_SLOWER})")
+        check(ratio["median"] <= PLAN_SLOWER, f"{precision}: the chosen "
+              f"forward's median per-round ratio to the static unfused one "
+              f"is {ratio['median']:.4f}, more than {PLAN_SLOWER}")
         if dataset == "reddit":
             if precision == "f32":
                 check(not any(lp.spmm.fused for lp in pplan.layers),
@@ -1615,7 +1657,8 @@ def phase_planning(torch, np, fv, registry, data, graph, cfg, params, feats,
         forwards[precision] = {"plan": layers, "n_candidates":
                                pplan.n_candidates, "plan_host_s": plan_s,
                                "launches": counts, "vs_reference": got,
-                               "forwards": timed}
+                               "forwards": timed,
+                               "chosen_over_static_unfused": ratio}
     serving = (planned_serving(torch, np, registry, data, cfg, params, dev)
                if dataset == "pubmed" else None)
     return {"device_model": model.name,
@@ -1650,17 +1693,21 @@ def planned_serving(torch, np, registry, data, cfg, params, dev) -> dict:
     # the full-graph step's precision is priced, then measured against f32
     full_modeled = {p: 1e3 * engine.full_step_seconds(p) for p in errs}
     steps = {p: engine._step(p) for p in {"f32", engine.resolved_precision}}
-    full_ms = timed_rounds(torch, {
+    full_times = timed_rounds(torch, {
         p: (lambda step=step: step(engine.params, engine._features_dev))
         for p, step in steps.items()}, PLAN_ROUNDS["pubmed"])
+    full_ms = {p: statistics.median(t) for p, t in full_times.items()}
+    full_ratio = round_ratios(full_times, engine.resolved_precision, "f32")
     print(f"phase 6: full-graph step modeled ms {full_modeled}; measured "
           f"median ms {full_ms} over {PLAN_ROUNDS['pubmed']} interleaved "
-          "rounds")
-    check(full_ms[engine.resolved_precision] <= PLAN_SLOWER * full_ms["f32"],
+          f"rounds; {engine.resolved_precision} / f32 per round: median "
+          f"{full_ratio['median']:.4f}, interquartile range "
+          f"{full_ratio['q1']:.4f}-{full_ratio['q3']:.4f}")
+    check(full_ratio["median"] <= PLAN_SLOWER,
           f"the autoplanned engine's full-graph step at "
-          f"{engine.resolved_precision} ({full_ms[engine.resolved_precision]:.3f}"
-          f" ms) is more than {PLAN_SLOWER}x its f32 step "
-          f"({full_ms['f32']:.3f} ms)")
+          f"{engine.resolved_precision} has a median per-round ratio of "
+          f"{full_ratio['median']:.4f} to its f32 step, more than "
+          f"{PLAN_SLOWER}")
     rung_plans = {}
     for b in rungs:
         plans = [(p.effective_impl, p.block_rows, p.block_k, p.block_f,
@@ -1710,6 +1757,7 @@ def planned_serving(torch, np, registry, data, cfg, params, dev) -> dict:
             "full_graph_precision": engine.resolved_precision,
             "full_graph_modeled_ms": full_modeled,
             "full_graph_measured_ms": full_ms,
+            "full_graph_over_f32": full_ratio,
             "rungs": rung_plans, "requests": len(requests), **out}
 
 
@@ -4084,6 +4132,271 @@ def phase_train(torch, np, data, cfg, graph, dev, card: str,
             "gcn": gcn, "seconds": seconds}
 
 
+# -- phase 13: the simulator and the examples ---------------------------------
+
+SIM_DATASETS = ("cora", "citeseer", "pubmed")
+SIM_TILE = 16
+# the survey's headline: 3.78x speedup and 40.5% less energy than GROW, the
+# geomean over five datasets (Cora, CiteSeer, PubMed, Reddit, Yelp)
+SURVEY_SPEEDUP, SURVEY_ENERGY_SAVING = 3.78, 0.405
+SIM_STATS = ("nz_block", "nz_col_rank", "nz_col", "nz_rb", "br_start",
+             "br_block", "br_rnz", "b_start", "b_nnz_start", "b_nnz",
+             "b_ncols", "b_nrows")
+OPS_WIDTH = 64           # the aggregation's dense operand: hidden 64
+EXAMPLE_SECONDS = 300
+EXAMPLE_TRAIN_STEPS = 100
+
+
+def simulate(torch, adj, fdim: int, dev) -> dict:
+    """The simulator's path on ``dev``: label propagation, the symmetric
+    permutation (host scipy), the tile statistics, Algorithm 2 and both
+    simulators; each step's seconds (the device synchronized at both
+    ends)."""
+    from repro_torch.core.preprocessing import apply_symmetric_permutation
+    from repro_torch.graphs.partition import label_propagation_permutation
+    from repro_torch.sim import (GROWConfig, HWConfig, compute_block_stats,
+                                 simulate_flexvector, simulate_grow)
+
+    seconds = {}
+
+    def timed(label, fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    perm = timed("label_propagation",
+                 lambda: label_propagation_permutation(adj, device=dev))
+    padj = timed("permute_host", lambda: apply_symmetric_permutation(adj, perm))
+    stats = timed("block_stats",
+                  lambda: compute_block_stats(padj, SIM_TILE, device=dev))
+    fv = timed("flexvector",
+               lambda: simulate_flexvector(padj, fdim, HWConfig(),
+                                           stats=stats))
+    gl = timed("grow", lambda: simulate_grow(padj, fdim, GROWConfig(m=6),
+                                             stats=stats))
+    return {"perm": perm, "stats": stats, "fv": fv, "gl": gl,
+            "seconds": seconds}
+
+
+def sim_ratios(run: dict) -> dict:
+    fv, gl = run["fv"], run["gl"]
+    return {"cycles_grow_over_flexvector": gl.cycles / fv.cycles,
+            "energy_flexvector_over_grow": fv.energy_pj / gl.energy_pj,
+            "flexvector_cycles": fv.cycles, "grow_cycles": gl.cycles,
+            "flexvector_energy_pj": fv.energy_pj,
+            "grow_energy_pj": gl.energy_pj}
+
+
+def sim_equal(torch, np, card: dict, cpu: dict, what: str) -> int:
+    """Every array and field of two simulator runs equal; returns the
+    number of values compared."""
+    from repro_torch.sim import HWConfig, alg2_best_k
+
+    n = 0
+    check(np.array_equal(card["perm"], cpu["perm"]),
+          f"phase 13: {what}: the card's label propagation differs")
+    n += len(cpu["perm"])
+    cs, hs = card["stats"], cpu["stats"]
+    for name in ("tile", "n_rows", "n_cols", "nnz"):
+        check(getattr(cs, name) == getattr(hs, name),
+              f"phase 13: {what}: BlockStats.{name} differs")
+    for name in SIM_STATS:
+        a, b = getattr(cs, name), getattr(hs, name)
+        check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+              f"phase 13: {what}: BlockStats.{name} differs ({a.dtype}, "
+              f"{b.dtype})")
+        n += b.numel()
+    hw = HWConfig()
+    for mode in ("single", "double"):
+        a = alg2_best_k(cs, hw.tau, hw.vrf_depth, mode=mode)
+        b = alg2_best_k(hs, hw.tau, hw.vrf_depth, mode=mode)
+        check(torch.equal(a.cpu(), b), f"phase 13: {what}: Algorithm 2 "
+              f"({mode}) differs")
+        n += b.numel()
+    for key in ("fv", "gl"):
+        for f in dataclasses.fields(cpu[key]):
+            a, b = getattr(card[key], f.name), getattr(cpu[key], f.name)
+            same = (torch.equal(a.cpu(), b) and a.dtype == b.dtype
+                    if isinstance(b, torch.Tensor) else a == b)
+            check(same, f"phase 13: {what}: {card[key].name}.{f.name} "
+                  f"differs: card {a!r}, CPU {b!r}")
+            n += b.numel() if isinstance(b, torch.Tensor) else 1
+    return n
+
+
+def sim_line(name: str, ratios: dict, seconds: dict, where: str) -> str:
+    return (f"phase 13: {name}: modeled GROW / FlexVector cycles "
+            f"{ratios['cycles_grow_over_flexvector']:.3f}x, FlexVector energy "
+            f"{ratios['energy_flexvector_over_grow']:.3f} of GROW's (the "
+            f"simulator's ASIC figures, not card times); {where} seconds "
+            + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items()))
+
+
+def sim_datasets(torch, np, dev) -> dict:
+    """(a): the three small datasets on the card and on the CPU."""
+    from repro_torch.graphs.datasets import load_dataset
+
+    cpu = torch.device("cpu")
+    out = {}
+    for i, name in enumerate(SIM_DATASETS):
+        ds = load_dataset(name, seed=SEED, with_features=False)
+        fdim = ds.spec.feature_dim
+        if i == 0:      # the card's first sorts and uniques, untimed
+            simulate(torch, ds.adj_norm, fdim, dev)
+        card = simulate(torch, ds.adj_norm, fdim, dev)
+        host = simulate(torch, ds.adj_norm, fdim, cpu)
+        n = sim_equal(torch, np, card, host, name)
+        ratios = sim_ratios(card)
+        print(sim_line(name, ratios, card["seconds"], "card"))
+        print(f"phase 13: {name}: CPU seconds " + ", ".join(
+            f"{k} {v:.4f}" for k, v in host["seconds"].items())
+            + f"; card equal to CPU in all {n} values ({ds.adj_norm.nnz} nnz,"
+            f" {card['stats'].n_blocks} tiles)")
+        out[name] = dict(ratios, nnz=ds.adj_norm.nnz,
+                         tiles=card["stats"].n_blocks,
+                         card_s=card["seconds"], cpu_s=host["seconds"],
+                         values_equal=n)
+    geo = {k: math.exp(statistics.fmean(math.log(r[k]) for r in out.values()))
+           for k in ("cycles_grow_over_flexvector",
+                     "energy_flexvector_over_grow")}
+    print(f"phase 13: geomean over {', '.join(SIM_DATASETS)}: modeled "
+          f"speedup {geo['cycles_grow_over_flexvector']:.3f}x, energy "
+          f"-{(1 - geo['energy_flexvector_over_grow']) * 100:.1f}% (the "
+          f"survey: {SURVEY_SPEEDUP}x, -{SURVEY_ENERGY_SAVING * 100:.1f}% "
+          f"over five datasets)")
+    return {"datasets": out, "geomean": geo,
+            "survey": {"speedup": SURVEY_SPEEDUP,
+                       "energy_saving": SURVEY_ENERGY_SAVING}}
+
+
+def ops_wrapper(torch, np, fv, graph, dev) -> dict:
+    """(c): ``flexvector_spmm`` at the dataset's ELL, every precision and
+    schedule: its launches, and its output against its kernel's plain
+    version on the same operands."""
+    from repro_torch.exec import SpmmOperands, SpmmPlan, quant
+    from repro_torch.exec.dispatch import aggregation_args
+    from repro_torch.kernels.ops import flexvector_spmm
+
+    ell = graph.pre.ell
+    gen = torch.Generator().manual_seed(SEED)
+    dense = torch.randn(ell.n_dense_rows, OPS_WIDTH, generator=gen).to(dev)
+    # the plain versions' operands, kept across calls: the sparse grid's
+    # schedule (host planning, seconds at Reddit) is built once for them
+    operands = SpmmOperands.from_ell(ell, dev)
+    out = {}
+    for precision in PRECISIONS:
+        for skip_empty in (True, False):
+            name = "spmm_ell_sparse_grid" if skip_empty else \
+                "spmm_ell_dense_grid"
+            if precision == "int8":
+                name += "_scaled"
+            want = {f"{name}@{precision}": 1}
+            fv.reset_launches()
+            got = flexvector_spmm(ell, dense, skip_empty=skip_empty,
+                                  precision=precision, device=dev)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n}
+            # the plain version on the operands the wrapper built
+            plan = SpmmPlan(impl="cuda_sparse" if skip_empty else "cuda",
+                            precision=precision).resolve(schedulable=True)
+            vals, scales = operands.values_for(precision, plan.block_rows)
+            kname, args, kw, (r, f) = aggregation_args(
+                plan, operands, vals, quant.cast_dense(dense, precision),
+                scales)
+            check(kname == name, f"phase 13: flexvector_spmm planned {kname}")
+            ref = fv.PLAIN[kname](*args, **kw)[:r, :f]
+            key = (kname if precision in ("f32", "int8")
+                   else f"{kname}@{precision}")
+            reading = agreement(torch, got, ref)
+            label = f"{'sparse' if skip_empty else 'dense'}@{precision}"
+            print(f"phase 13: flexvector_spmm {label}: launched {counts}; "
+                  f"vs the plain version {describe(reading)} (limit "
+                  f"{REL_TOL[key]})")
+            check(counts == want, f"phase 13: flexvector_spmm {label} "
+                  f"launched {counts}, not {want}")
+            check(tuple(got.shape) == (ell.padded_rows, OPS_WIDTH)
+                  and agrees(reading, REL_TOL[key]),
+                  f"phase 13: flexvector_spmm {label} disagrees with its "
+                  f"plain version: {describe(reading)}")
+            out[label] = {"launches": counts, "vs_plain": reading,
+                          "rel_tol": REL_TOL[key]}
+    return out
+
+
+def run_examples(root: str) -> dict:
+    """(d): the two examples at Cora on the card, side by side."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = {
+        "torch_quickstart": ["--impl", "cuda_sparse"],
+        "torch_train_gcn": ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                            "--inject-failure", "--fresh", "--ckpt-dir",
+                            os.path.join(root, "gcn_example")],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+         "--dataset", "cora", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in argv.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_SECONDS)
+            lines = stdout.strip().splitlines()
+            print(f"phase 13: examples/{name}.py exited {proc.returncode} "
+                  f"after {time.perf_counter() - t0:.1f} s; last lines: "
+                  + " | ".join(lines[-3:]))
+            check(proc.returncode == 0, f"phase 13: examples/{name}.py "
+                  f"exited {proc.returncode}: {stderr[-2000:]}")
+            out[name] = {"returncode": proc.returncode,
+                         "last_lines": lines[-3:]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check("restarts=1" in " ".join(out["torch_train_gcn"]["last_lines"]),
+          "phase 13: the training example did not restart once")
+    return out
+
+
+def phase_sim(torch, np, fv, data, graph, dev, card: str,
+              dataset: str) -> dict:
+    """Phase 13: the simulator on the card (against the CPU at the small
+    datasets), ``flexvector_spmm`` and the examples."""
+    t0 = time.perf_counter()
+    small = sim_datasets(torch, np, dev)
+    t1 = time.perf_counter()
+    run = None
+    if dataset not in SIM_DATASETS:
+        r = simulate(torch, data.adj_norm, data.spec.feature_dim, dev)
+        run = dict(sim_ratios(r), nnz=data.adj_norm.nnz,
+                   tiles=r["stats"].n_blocks, card_s=r["seconds"])
+        print(sim_line(dataset, run, r["seconds"], "card"))
+        del r
+    t2 = time.perf_counter()
+    ops = ops_wrapper(torch, np, fv, graph, dev)
+    t3 = time.perf_counter()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_",
+                                     dir=build) as root:
+        examples = run_examples(root)
+    t4 = time.perf_counter()
+    seconds = {"small": t1 - t0, "dataset": t2 - t1, "ops": t3 - t2,
+               "examples": t4 - t3}
+    print("phase 13: seconds " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
+    return {"card": card, "dataset": dataset, **small, "run_dataset": run,
+            "flexvector_spmm": ops, "examples": examples,
+            "seconds": seconds}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -4113,7 +4426,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-12 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-13 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -4187,6 +4500,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
     train_phase = phase_train(torch, np, data, cfg, graph, dev, card,
                               args.dataset)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    sim_phase = phase_sim(torch, np, fv, data, graph, dev, card, args.dataset)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -4236,6 +4552,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
         line["fleet_launches"] = {
             how: {k: n for k, n in counts.items() if k.split("@")[0] == name}
             for how, counts in fleet["launches"].items()}
+        line["flexvector_spmm_launches"] = {
+            label: n for label, e in sim_phase["flexvector_spmm"].items()
+            for key, n in e["launches"].items() if key.split("@")[0] == name}
         line["serving_mesh_launches"] = {
             key: [{k: n for k, n in rk["replayed"].items()
                    if k.split("@")[0] == name} for rk in e["per_rank"]]
@@ -4267,6 +4586,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(json.dumps({"serving_mesh": dict(serving_mesh, settings=SERVE)}))
     print(json.dumps({"lm": lm_phase}))
     print(json.dumps({"train": train_phase}))
+    print(json.dumps({"sim": sim_phase}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,1 +1,68 @@
-"""Host-side core: sparse formats, preprocessing, launch schedules, SpMM."""
+"""Host-side core: sparse formats, preprocessing, launch schedules, SpMM,
+Algorithm 2 and the coarse-grained ISA.
+
+Exports the reference's (``repro.core``) names for the modules the port
+has, under the same names.
+"""
+
+from repro_torch.core.sparse_formats import (
+    CSRMatrix,
+    TiledELL,
+    PAD_COL,
+    csr_rows_to_ell,
+    random_power_law_csr,
+)
+from repro_torch.core.preprocessing import (
+    PreprocessResult,
+    Tile,
+    VertexCutTile,
+    edge_cut_permutation,
+    apply_symmetric_permutation,
+    partition_into_tiles,
+    vertex_cut_tile,
+    preprocess,
+)
+from repro_torch.core.topk_select import (
+    select_top_k,
+    fixed_region_columns,
+    tile_miss_profile,
+)
+from repro_torch.core.isa import (
+    Op,
+    Instr,
+    TileProgram,
+    build_tile_program,
+    build_programs,
+    expand_instructions,
+)
+from repro_torch.core.dataflow import KernelGrid, plan_kernel_grid
+from repro_torch.core.spmm import spmm_ell, segment_accumulate
+
+__all__ = [
+    "CSRMatrix",
+    "TiledELL",
+    "PAD_COL",
+    "csr_rows_to_ell",
+    "random_power_law_csr",
+    "PreprocessResult",
+    "Tile",
+    "VertexCutTile",
+    "edge_cut_permutation",
+    "apply_symmetric_permutation",
+    "partition_into_tiles",
+    "vertex_cut_tile",
+    "preprocess",
+    "select_top_k",
+    "fixed_region_columns",
+    "tile_miss_profile",
+    "Op",
+    "Instr",
+    "TileProgram",
+    "build_tile_program",
+    "build_programs",
+    "expand_instructions",
+    "KernelGrid",
+    "plan_kernel_grid",
+    "spmm_ell",
+    "segment_accumulate",
+]

@@ -75,6 +75,9 @@ class Tile:
     local_rows_cols: List[np.ndarray]  # per-row tile-local column indices
     local_rows_vals: List[np.ndarray]  # per-row values
 
+    def rnz(self) -> np.ndarray:
+        return np.array([len(c) for c in self.local_rows_cols], dtype=np.int64)
+
     def cnz(self) -> np.ndarray:
         """Nonzeros per tile-local column (Algorithm 1's hotness input)."""
         counts = np.zeros(len(self.col_ids), dtype=np.int64)
@@ -128,6 +131,9 @@ class VertexCutTile:
     sub_rows_vals: List[np.ndarray]
     sub_row_map: np.ndarray          # (n_sub_rows,) -> global output row
     tau: int
+
+    def rnz(self) -> np.ndarray:
+        return np.array([len(c) for c in self.sub_rows_cols], dtype=np.int64)
 
 
 def _hot_columns(cnz: np.ndarray, tau: int) -> np.ndarray:

@@ -301,3 +301,196 @@ def test_sparse_plan_degrades_without_host_ell():
     assert resolved.resolve(schedulable=False) is resolved
     kept = plan.resolve(schedulable=True)
     assert kept.effective_impl == "cuda_sparse" and not kept.degraded
+
+
+# -- graphs.partition ---------------------------------------------------------
+
+# (n, nnz, alpha, seed)
+PARTITION_CASES = [(96, 700, 2.1, 0), (200, 2500, 2.6, 3), (64, 40, 2.1, 7),
+                   (150, 1200, 1.8, 11)]
+
+
+@pytest.mark.parametrize("iters", [1, 5, 20])
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_label_propagation_matches_reference(case, iters):
+    from repro.graphs.partition import label_propagation_permutation as j_lp
+    from repro_torch.graphs.partition import label_propagation_permutation as t_lp
+
+    n, nnz, alpha, seed = case
+    t = tsf.random_power_law_csr(n, n, nnz, alpha=alpha, seed=seed)
+    j = jsf.random_power_law_csr(n, n, nnz, alpha=alpha, seed=seed)
+    got, want = t_lp(t, iters=iters, device="cpu"), j_lp(j, iters=iters)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_label_propagation_of_isolated_nodes_matches_reference():
+    """Rows with no nonzeros keep their own label; an empty graph is the
+    identity ordered by degree."""
+    import scipy.sparse as sp
+
+    from repro.graphs.partition import label_propagation_permutation as j_lp
+    from repro_torch.graphs.partition import label_propagation_permutation as t_lp
+
+    d = np.zeros((12, 12), np.float32)
+    d[0, [1, 2]] = d[1, [0, 2]] = d[2, [0, 1]] = d[5, 7] = d[7, 5] = 1.0
+    for m in (sp.csr_matrix(d), sp.csr_matrix((9, 9), dtype=np.float32)):
+        np.testing.assert_array_equal(
+            t_lp(tsf.CSRMatrix.from_scipy(m), device="cpu"),
+            j_lp(jsf.CSRMatrix.from_scipy(m)))
+
+
+@pytest.mark.parametrize("tile", [4, 16, 64])
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_cluster_greedy_bfs_matches_reference(case, tile):
+    from repro.graphs.partition import cluster_greedy_bfs as j_bfs
+    from repro_torch.graphs.partition import cluster_greedy_bfs as t_bfs
+
+    n, nnz, alpha, seed = case
+    t = tsf.random_power_law_csr(n, n, nnz, alpha=alpha, seed=seed)
+    j = jsf.random_power_law_csr(n, n, nnz, alpha=alpha, seed=seed)
+    got, want = t_bfs(t, tile), j_bfs(j, tile)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("method", ["rcm", "degree", "none", "lp", "bfs",
+                                    "random"])
+def test_edge_cut_quality_matches_reference(method):
+    from repro.graphs import partition as jpart
+    from repro_torch.graphs import partition as tpart
+
+    t = tsf.random_power_law_csr(160, 160, 1500, alpha=2.3, seed=2)
+    j = jsf.random_power_law_csr(160, 160, 1500, alpha=2.3, seed=2)
+    perm = {"lp": lambda: jpart.label_propagation_permutation(j),
+            "bfs": lambda: jpart.cluster_greedy_bfs(j, 16),
+            "random": lambda: np.random.default_rng(0).permutation(160),
+            }.get(method, lambda: jpre.edge_cut_permutation(j, method))()
+    for tile in (8, 16):
+        assert tpart.edge_cut_quality(t, perm, tile) == \
+            jpart.edge_cut_quality(j, perm, tile)
+
+
+def test_graphs_exports_the_reference_names():
+    import repro.graphs as jg
+    import repro_torch.graphs as tg
+
+    assert tg.__all__ == jg.__all__
+    for name in tg.__all__:
+        obj = getattr(tg, name)
+        if hasattr(obj, "__name__"):
+            assert obj.__name__ == getattr(jg, name).__name__
+
+
+# -- kernels.ops.flexvector_spmm ----------------------------------------------
+
+
+def _spmm_case(seed=0, f=24):
+    j = jpre.preprocess(jsf.random_power_law_csr(90, 90, 700, alpha=2.4,
+                                                 seed=seed),
+                        tau=6, tile_rows=16, pad_rows_to=16)
+    rng = np.random.default_rng(seed + 1)
+    return j.ell, rng.standard_normal((j.ell.n_dense_rows, f)).astype(np.float32)
+
+
+@pytest.mark.parametrize("skip_empty", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_flexvector_spmm_matches_reference_wrapper(precision, skip_empty):
+    """The port's wrapper (the kernels' plain versions on the CPU) against
+    the reference wrapper (Pallas interpret) on the same ELL: within
+    1e-5 of max|reference| (the kernels' bar, ``PERF.md`` §2), and no
+    kernel launched on the CPU."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import flexvector_spmm as fv
+    from repro_torch.kernels import ops as tops
+
+    ell, dense = _spmm_case()
+    kw = dict(block_rows=16, block_k=16, block_f=8, skip_empty=skip_empty,
+              precision=precision)
+    want = np.asarray(jops.flexvector_spmm(ell, jnp.asarray(dense),
+                                           interpret=True, **kw), np.float64)
+    fv.reset_launches()
+    got = tops.flexvector_spmm(ell, dense, device="cpu", **kw)
+    assert not any(fv.PRECISION_LAUNCHES.values())
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    err = np.abs(got.numpy().astype(np.float64) - want).max()
+    assert err <= 1e-5 * np.abs(want).max(), err
+    # a torch operand on the device, and an output dtype
+    out = tops.flexvector_spmm(ell, torch.as_tensor(dense), device="cpu",
+                               out_dtype=torch.float64, **kw)
+    assert out.dtype == torch.float64
+    np.testing.assert_array_equal(out.numpy(), got.numpy().astype(np.float64))
+
+
+def test_flexvector_spmm_refuses_the_cpu_without_being_asked(monkeypatch):
+    from repro_torch.kernels import ops as tops
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ell, dense = _spmm_case()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tops.flexvector_spmm(ell, dense)
+
+
+# -- examples/torch_*.py ------------------------------------------------------
+
+
+def _example(name, *args, device="cpu"):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="",
+               JAX_PLATFORMS="cpu")
+    argv = [sys.executable, os.path.join(ROOT, "examples", name), *args]
+    if device:
+        argv += ["--device", device]
+    return subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+
+
+def test_torch_quickstart_runs_on_the_cpu_like_the_reference():
+    """Cora with ``--device cpu``: its SpMM within the f32 bar of the scipy
+    oracle, and its simulator lines the reference example's, character
+    for character."""
+    got = _example("torch_quickstart.py", "--impl", "cuda_sparse")
+    assert got.returncode == 0, got.stderr
+    want = _example("quickstart.py", device=None)
+    assert want.returncode == 0, want.stderr
+    lines, ref = got.stdout.splitlines(), want.stdout.splitlines()
+    assert lines[0] == ref[0]                     # the dataset line
+    assert lines[-3:] == ref[-3:]                 # FlexVector, GROW, speedup
+    err = float(next(ln for ln in lines if "vs scipy" in ln).split()[-1])
+    assert err <= 1e-5
+
+
+def test_torch_serve_gcn_runs_on_the_cpu():
+    got = _example("torch_serve_gcn.py", "--requests", "16", "--batch", "4")
+    assert got.returncode == 0, got.stderr
+    out = got.stdout
+    for field in ("batch 0: 4 requests, receptive fields",
+                  "16 requests in", "latency per request: p50=",
+                  "FlexVector ASIC estimate:"):
+        assert field in out, out
+    # the estimate is the reference simulator's at the RCM permutation
+    want = _example("serve_gcn.py", "--requests", "8", "--batch", "8",
+                    device=None)
+    assert want.returncode == 0, want.stderr
+    assert out.splitlines()[-1] == want.stdout.splitlines()[-1]
+
+
+def test_torch_train_gcn_runs_on_the_cpu_and_restarts(tmp_path):
+    got = _example("torch_train_gcn.py", "--steps", "60", "--inject-failure",
+                   "--fresh", "--ckpt-dir", str(tmp_path / "ckpt"))
+    assert got.returncode == 0, got.stderr
+    assert "done: steps=60 restarts=1" in got.stdout, got.stdout
+    assert "final loss=" in got.stdout
+
+
+@pytest.mark.parametrize("name, args", [
+    ("torch_quickstart.py", ()),
+    ("torch_serve_gcn.py", ("--requests", "4")),
+    ("torch_train_gcn.py", ("--steps", "2")),
+])
+def test_torch_examples_refuse_the_cpu_without_being_asked(name, args):
+    got = _example(name, *args, device=None)
+    assert got.returncode != 0
+    assert "CUDA is not available" in got.stderr

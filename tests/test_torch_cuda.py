@@ -1045,3 +1045,125 @@ def test_cuda_kernel_impls_refuse_gradients(cuda_device):
                                                     cfg))(params)
     assert np.isfinite(float(loss))
     assert grads["layer_0"]["w"].device.type == "cuda"
+
+
+# -- the simulator and flexvector_spmm on the card ------------------------------
+
+SIM_STATS = ("nz_block", "nz_col_rank", "nz_col", "nz_rb", "br_start",
+             "br_block", "br_rnz", "b_start", "b_nnz_start", "b_nnz",
+             "b_ncols", "b_nrows")
+SIM_GRAPHS = [(200, 1500, 2.1, 0), (500, 6000, 2.6, 3), (64, 40, 2.1, 7),
+              "cora"]
+
+
+def _sim_graph(case):
+    if case == "cora":
+        from repro_torch.graphs.datasets import load_dataset
+
+        ds = load_dataset("cora", seed=0, with_features=False)
+        return ds.adj_norm, ds.spec.feature_dim
+    n, nnz, alpha, seed = case
+    return random_power_law_csr(n, n, nnz, alpha=alpha, seed=seed), 64
+
+
+def _sim_stats_equal(card, cpu):
+    for name in ("tile", "n_rows", "n_cols", "nnz", "n_blocks"):
+        assert getattr(card, name) == getattr(cpu, name), name
+    assert card.device.type == "cuda"
+    for name in SIM_STATS:
+        a, b = getattr(card, name), getattr(cpu, name)
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+
+
+def _sim_results_equal(card, cpu):
+    import dataclasses
+
+    for f in dataclasses.fields(cpu):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        if isinstance(b, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f.name
+        else:
+            assert a == b, (f.name, a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SIM_GRAPHS, ids=str)
+def test_cuda_label_propagation_matches_cpu(cuda_device, case):
+    from repro_torch.graphs.partition import label_propagation_permutation
+
+    adj, _ = _sim_graph(case)
+    for iters in (1, 5):
+        np.testing.assert_array_equal(
+            label_propagation_permutation(adj, iters, device=cuda_device),
+            label_propagation_permutation(adj, iters, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("case", SIM_GRAPHS, ids=str)
+def test_cuda_block_stats_and_alg2_match_cpu(cuda_device, case, tile):
+    from repro_torch.sim import alg2_best_k, compute_block_stats
+
+    adj, _ = _sim_graph(case)
+    card = compute_block_stats(adj, tile, device=cuda_device)
+    cpu = compute_block_stats(adj, tile, device="cpu")
+    _sim_stats_equal(card, cpu)
+    for mode in ("single", "double"):
+        for tau, depth, pct in ((6, 12, 0.5), (4, 8, 1.0), (6, 32, 0.25)):
+            a = alg2_best_k(card, tau, depth, mode=mode, pct=pct)
+            b = alg2_best_k(cpu, tau, depth, mode=mode, pct=pct)
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    for g in (1, 6, 10_000):
+        assert card.unique_group_loads(g) == cpu.unique_group_loads(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [dict(), dict(m=1), dict(double_vrf=False),
+                                dict(flexible_k=False),
+                                dict(vertex_cut=False)], ids=str)
+@pytest.mark.parametrize("case", SIM_GRAPHS, ids=str)
+def test_cuda_simulators_match_cpu(cuda_device, case, hw):
+    from repro_torch.sim import (GROWConfig, HWConfig, compute_block_stats,
+                                 simulate_flexvector, simulate_grow)
+
+    adj, fdim = _sim_graph(case)
+    card = compute_block_stats(adj, 16, device=cuda_device)
+    cpu = compute_block_stats(adj, 16, device="cpu")
+    _sim_results_equal(
+        simulate_flexvector(adj, fdim, HWConfig(**hw), stats=card),
+        simulate_flexvector(adj, fdim, HWConfig(**hw), stats=cpu))
+    for stats in (True, False):
+        _sim_results_equal(
+            simulate_grow(adj, fdim, GROWConfig(m=hw.get("m", 6)),
+                          stats=card if stats else None, device=cuda_device),
+            simulate_grow(adj, fdim, GROWConfig(m=hw.get("m", 6)),
+                          stats=cpu if stats else None, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip_empty", [True, False], ids=["sparse", "dense"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_cuda_flexvector_spmm_matches_plain_version(cuda_device, precision,
+                                                    skip_empty):
+    """The wrapper launches its own kernel once at its own precision, and
+    agrees with the same call on the CPU (the plain version) within the
+    aggregation kernels' 1e-5."""
+    from repro_torch.core.preprocessing import preprocess
+    from repro_torch.kernels.ops import flexvector_spmm
+
+    ell = preprocess(random_power_law_csr(300, 300, 3000, alpha=2.4, seed=2),
+                     tau=6, tile_rows=16, pad_rows_to=128).ell
+    dense = np.random.default_rng(1).standard_normal(
+        (ell.n_dense_rows, 40)).astype(np.float32)
+    name = "spmm_ell_sparse_grid" if skip_empty else "spmm_ell_dense_grid"
+    if precision == "int8":
+        name += "_scaled"
+    fv.reset_launches()
+    out = flexvector_spmm(ell, dense, skip_empty=skip_empty,
+                          precision=precision, device=cuda_device)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n} == {
+        f"{name}@{precision}": 1}
+    ref = flexvector_spmm(ell, dense, skip_empty=skip_empty,
+                          precision=precision, device="cpu")
+    assert rel_max_err(out, ref) <= 1e-5

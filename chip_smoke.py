@@ -226,7 +226,8 @@ Phases, in order; any failure exits non-zero:
    losses stay within 1e-2 of an uninterrupted run's; (d) the GCN as
    ``examples/train_gcn.py`` trains it: the dataset at its published
    widths, hidden 64, ``impl="reference"``, 100 steps with a failure at
-   step 40, the first step's gradients on the card and on the CPU each
+   step 40 (at Reddit 30 steps, failing at 12: its steps take ~1.8 s),
+   the first step's gradients on the card and on the CPU each
    within 2^-23 sqrt(nnz) of an f64 plain GCN's on the CPU, one step's
    device ops, and a ``cuda`` impl refusing gradients.
 13. The simulator and the examples (no TPU kernel lies on the simulator's
@@ -251,13 +252,41 @@ Phases, in order; any failure exits non-zero:
    (d) ``examples/torch_quickstart.py --impl cuda_sparse`` and
    ``examples/torch_train_gcn.py --inject-failure`` (100 steps) at Cora,
    each a subprocess on the card, run side by side; each must exit 0.
+14. The LM under a mesh (``dist.sharding.ShardingPlan``,
+   ``launch.mesh.make_production_mesh``, DTensor steps; no TPU kernel
+   lies on this path): (a) phase 11's qwen3-8b (its seed, published
+   widths, 36 layers) placed by ``ShardingPlan`` on a (1, 2) data x model
+   mesh of two gloo ranks on the one card (NCCL refuses two ranks on one
+   card; each rank draws the full weights and keeps its shards), the
+   prefill of phase 11's 4 x 64 prompt and 8 cached decode steps through
+   ``build_prefill_step`` / ``build_serve_step(mesh=)``: every rank's
+   whole logits within 2e-2 of max|logits| of the single-card steps', or
+   within twice the single card's own move when only its kernels change
+   (each sequence run alone against the batch, measured beside; at most
+   5e-2, phase 11's full-width bar), each rank's peak memory during the steps at most 0.6 of the single
+   card's, the decode ms a token and a step's collectives (calls and
+   bytes, ``roofline.analysis.CollectiveCounter``); (b) one
+   internlm2-1.8b train step at the training CLI's batch 8 x seq 128 on
+   the same mesh, its loss within 1e-2 of the single card's, peak memory
+   and the second step's ms; (c) ``python -m repro_torch.launch.dryrun``
+   for qwen3-8b x train_4k and decode_32k and deepseek-v2-lite-16b x
+   decode_32k (its MoE forward; its train_4k backward has no DTensor rule
+   on the card's torch) on a fake 16 x 16 mesh, on the host (no tensor on the card;
+   each process holds a CUDA context, which autograd's device thread needs),
+   side by side with (a) and (b): each record and its H100 roofline
+   terms (the device model's peaks, not card times).  Gloo's functional
+   all-gather crashes on CUDA tensors on the card's torch, so the mesh
+   routes it through ``all_gather_into_tensor``
+   (``launch.mesh.gloo_cuda_all_gather``).  At Reddit, phase 9's open
+   loops last 10 s each (40 s at PubMed) to fit the run in 1,200 s.
 
 Prints one ``{"fused_split": ...}`` line, one ``{"kernels": [...]}`` line,
 one ``{"serving": ...}`` line, one ``{"planning": ...}`` line, one
 ``{"sharding": ...}`` line, one ``{"async": ...}`` line, one
 ``{"fleet": ...}`` line, one ``{"serving_mesh": ...}`` line, one
-``{"lm": ...}`` line, one ``{"train": ...}`` line and one ``{"sim": ...}``
-line, then as the last
+``{"lm": ...}`` line, one ``{"train": ...}`` line, one ``{"sim": ...}``
+line, one ``{"lm_mesh": ...}`` line and one ``{"dryrun": ...}`` line, then
+as the last
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero and prints
 no result.
@@ -439,6 +468,11 @@ FLEET_TENANTS = (dict(name="cold", priority=1, deadline_s=0.4),
                  dict(name="hot", qps=20.0, burst=4.0, max_inflight=32))
 FLEET_COLD_QPS, FLEET_HOT_QPS = 5.0, 80.0
 FLEET_SECONDS = 40.0
+# Reddit's open loops are cut to fit the run's 1,200 s: each of its
+# payloads costs ~65 ms of host preparation (3,400 at 40 s), so at Reddit
+# each window lasts 10 s (50 cold requests a servable, 800 hot: still
+# above FLEET_MIN_SAMPLE, and the hot tenant still over its quota).
+FLEET_SECONDS_CUT = {"reddit": 10.0}
 FLEET_ISOLATION = 0.05   # the reference's bar: cold attainment within 5%
 FLEET_MIN_SAMPLE = 30    # answers a share needs for its normal interval
 FLEET_MEMORY_SLACK = 16 * 2 ** 20   # bytes, across three unload cycles
@@ -2811,8 +2845,13 @@ def phase_fleet(torch, np, fv, registry, data, cfg, params, dev,
           f"(costs {[sv.cost_units() for sv in servables.values()]}) in a "
           f"capacity of {capacity} units, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    n = {"cold": int(FLEET_COLD_QPS * FLEET_SECONDS),
-         "hot": int(FLEET_HOT_QPS * FLEET_SECONDS)}
+    seconds = FLEET_SECONDS_CUT.get(dataset, FLEET_SECONDS)
+    n = {"cold": int(FLEET_COLD_QPS * seconds),
+         "hot": int(FLEET_HOT_QPS * seconds)}
+    print(f"phase 9: settings: open loops of {seconds:.0f} s "
+          + (f"(cut from {FLEET_SECONDS:.0f} s at {dataset}: the run's "
+             f"1,200 s limit)" if seconds != FLEET_SECONDS else "")
+          + f": {n['cold']} cold requests a servable, {n['hot']} hot")
     cold, hot = {}, None
     for key, sv in servables.items():
         n_nodes = sv.engine.graph.n_nodes
@@ -3685,6 +3724,11 @@ def gcn_grad_limit(nnz: int) -> float:
 
 
 GCN_TRAIN = dict(steps=100, fail_at=40, ckpt_every=25, lr=5e-3, warmup=20)
+# Reddit's GCN steps take ~1.8 s each (115 with the replay: 210 s); cut to
+# fit the run's 1,200 s, with the failure, the checkpoints and the warmup
+# scaled alike.
+GCN_TRAIN_CUT = {"reddit": dict(steps=30, fail_at=12, ckpt_every=8,
+                                lr=5e-3, warmup=6)}
 
 
 def tree_equal(torch, a, b) -> bool:
@@ -4005,6 +4049,10 @@ def train_gcn(torch, np, data, cfg, graph, dev, card: str, root: str,
 
     check(cfg.spmm_impl == "reference", "phase 12: the GCN trains through "
           "impl='reference'")
+    gtrain = GCN_TRAIN_CUT.get(dataset, GCN_TRAIN)
+    print(f"phase 12: GCN settings {gtrain}"
+          + (f" (cut from {GCN_TRAIN} at {dataset}: the run's 1,200 s limit)"
+             if gtrain is not GCN_TRAIN else ""))
     # learnable labels: 2-hop aggregated feature argmax (examples/train_gcn.py)
     a = data.adj_norm.to_scipy()
     labels = np.argmax(np.asarray(a @ (a @ data.features[:, :cfg.out_dim])),
@@ -4044,8 +4092,8 @@ def train_gcn(torch, np, data, cfg, graph, dev, card: str, root: str,
     except RuntimeError as e:
         refused = "has no backward" in str(e)
 
-    opt_cfg = AdamWConfig(lr=GCN_TRAIN["lr"], total_steps=GCN_TRAIN["steps"],
-                          warmup_steps=GCN_TRAIN["warmup"])
+    opt_cfg = AdamWConfig(lr=gtrain["lr"], total_steps=gtrain["steps"],
+                          warmup_steps=gtrain["warmup"])
     grad = value_and_grad(loss_fn(dev))
 
     def step_fn(state, _batch):
@@ -4057,14 +4105,14 @@ def train_gcn(torch, np, data, cfg, graph, dev, card: str, root: str,
     fired = {"done": False}
 
     def hook(s):
-        if s == GCN_TRAIN["fail_at"] and not fired["done"]:
+        if s == gtrain["fail_at"] and not fired["done"]:
             fired["done"] = True
             raise StepFailure("injected node loss")
 
-    tcfg = TrainerConfig(total_steps=GCN_TRAIN["steps"],
+    tcfg = TrainerConfig(total_steps=gtrain["steps"],
                          ckpt_dir=os.path.join(root, "gcn"),
-                         ckpt_every=GCN_TRAIN["ckpt_every"],
-                         log_every=GCN_TRAIN["ckpt_every"])
+                         ckpt_every=gtrain["ckpt_every"],
+                         log_every=gtrain["ckpt_every"])
     t0 = time.perf_counter()
     state, report = run(tcfg, {"params": params, "opt": adamw_init(params)},
                         step_fn, iter(lambda: None, 1), failure_hook=hook,
@@ -4098,7 +4146,7 @@ def train_gcn(torch, np, data, cfg, graph, dev, card: str, root: str,
               f"phase 12: GCN gradients ({side}, f32) disagree with f64 "
               f"({grad_rel[side]:.3e}, limit {bar:.3e})")
     check(refused, "phase 12: the cuda impl took gradients")
-    return {"dataset": dataset, "card": card, "steps": GCN_TRAIN["steps"],
+    return {"dataset": dataset, "card": card, "steps": gtrain["steps"],
             "losses": report.losses, "train_accuracy": acc,
             "median_step_ms": step_ms, "restarts": report.restarts,
             "busy_ms": sum(busy.values()), "top_ops_ms": dict(top),
@@ -4397,6 +4445,392 @@ def phase_sim(torch, np, fv, data, graph, dev, card: str,
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the LM under a mesh
+# ---------------------------------------------------------------------------
+
+# (a) phase 11's qwen3-8b run (its seed, batch 4 x 64 prompt) sharded over
+# a (1, 2) data x model mesh of two gloo ranks on the one card; (b) one
+# train step of internlm2-1.8b at the training CLI's batch 8 x seq 128 and
+# its AdamW settings on the same mesh; (c) the dry run of three production
+# cells on a fake 16 x 16 mesh, on the host.
+LM_MESH_SHAPE = (1, 2)
+LM_MESH_SERVE = dict(arch="qwen3-8b", batch=4, max_seq=64, decode=8)
+LM_MESH_TRAIN = dict(arch="internlm2-1.8b", batch=8, seq=128)
+# The logits' bar, as a share of max|logits|: phase 11's 2e-2, or twice
+# the single card's own move when only the kernels change (each sequence
+# run alone against the batch of 4, measured in the same run), up to
+# phase 11's full-width bar (decode vs forward, LM_DECODE_REL).  At
+# qwen3-8b's full width that move alone reads 1.4e-2 on an H100 (the
+# prefill; PERF.md) and the sharded decode 2.2e-2: 2e-2 sits at the floor
+# of kernel choice there.
+LM_MESH_REL = 2e-2
+LM_MESH_LOSS_REL = 1e-2
+LM_MESH_MEMORY = 0.6        # a rank's peak over the single-card run's
+LM_MESH_SECONDS = 600
+# deepseek's MoE cell is decode_32k: at train_4k the backward of its
+# dispatch (an index by indices sharded over both mesh dims) has no DTensor
+# rule on the card's torch 2.11 (the CPU tests' 2.13 runs it)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
+                ("deepseek-v2-lite-16b", "decode_32k"))
+DRYRUN_SECONDS = 600
+DRYRUN_DEVICE = "cuda"      # the fake tensors' device type (no card used)
+
+
+def lm_mesh_weights(torch, cfg, dev):
+    """Phase 11's weights: ``init_lm`` from seed 0 drawn on the card."""
+    from repro_torch.models import lm
+
+    return lm.init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def lm_mesh_train_cfg(cfg):
+    """The training CLI's config: its loss chunk cut to the sequence."""
+    return dataclasses.replace(
+        cfg, loss_chunk=min(cfg.loss_chunk, LM_MESH_TRAIN["seq"]))
+
+
+def lm_mesh_opt():
+    from repro_torch.train import AdamWConfig
+
+    return AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
+
+
+def lm_mesh_inputs(np, cfg_serve, cfg_train) -> tuple:
+    """The prompt (phase 11's draw) and the train batch (the CLI's
+    first)."""
+    from repro_torch.data.synthetic import token_batch
+
+    s = LM_MESH_SERVE
+    prompt = np.random.default_rng(SEED).integers(
+        0, cfg_serve.vocab, (s["batch"], s["max_seq"]))
+    t = LM_MESH_TRAIN
+    batch = token_batch(cfg_train.vocab, t["batch"], t["seq"], 0, 0).numpy()
+    return prompt, batch
+
+
+def timed_ms(torch, fn) -> tuple:
+    """(fn's result, its host ms to the card's end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_mesh_serve(torch, np, params, cfg, prompt, dev, mesh=None,
+                  counter=None) -> dict:
+    """Prefill of the prompt, then LM_MESH_SERVE["decode"] cached decode
+    steps from an empty cache: each step's logits (whole, f32 numpy),
+    the decode ms, and the peak memory of the run."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import lm
+
+    s = LM_MESH_SERVE
+    whole = ((lambda t: t.full_tensor()) if mesh is not None
+             else (lambda t: t))
+    prefill = build_prefill_step(cfg, mesh=mesh, device=dev)
+    serve = build_serve_step(cfg, mesh=mesh, device=dev)
+    cache = lm.init_cache(cfg, prompt.shape[0], s["max_seq"], device=dev)
+    if mesh is not None:
+        from repro_torch.dist.sharding import ShardingPlan, distribute_cache
+        from repro_torch.launch.mesh import dp_axes
+
+        cache = distribute_cache(cache, ShardingPlan(mesh), dp_axes(mesh))
+    torch.cuda.reset_peak_memory_stats()
+    logits, prefill_ms = timed_ms(torch, lambda: prefill(params, prompt))
+    out = {"prefill": whole(logits).float().cpu().numpy(), "decode": [],
+           "prefill_ms": prefill_ms, "decode_ms": []}
+    tokens = prompt[:, :s["decode"]]
+    for t in range(s["decode"]):
+        (logits, cache), ms = timed_ms(
+            torch, lambda: serve(params, cache, tokens[:, t:t + 1], t))
+        out["decode"].append(whole(logits).float().cpu().numpy())
+        out["decode_ms"].append(ms)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if counter is not None:
+        with counter:
+            serve(params, cache, tokens[:, -1:], s["decode"])
+        out["decode_collectives"] = counter.summary()
+        counter.reset()
+        with counter:
+            prefill(params, prompt)
+        out["prefill_collectives"] = counter.summary()
+    return out
+
+
+def lm_mesh_train(torch, params, cfg, batch, dev, mesh=None) -> dict:
+    """Two train steps from the given weights: the first's loss, the
+    second's ms, and the peak memory of the two."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.train import adamw_init
+
+    step = build_train_step(cfg, lm_mesh_opt(), mesh=mesh, device=dev)
+    opt = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(2):
+        (params, opt, metrics), ms = timed_ms(
+            torch, lambda: step(params, opt, batch))
+        loss = metrics["loss"]
+        losses.append(float(loss.full_tensor() if mesh is not None
+                            else loss))
+        times.append(ms)
+    return {"losses": losses, "step_ms": times,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_mesh_rank(rank: int, world: int, directory: str) -> None:
+    """One rank of phase 14: joins the gloo group (a ``FileStore`` in
+    ``directory``), runs :func:`lm_mesh_run` and writes its record, or its
+    error."""
+    import datetime
+    import traceback
+
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(directory, "store"),
+                                         world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=LM_MESH_SECONDS))
+        lm_mesh_run(torch, np, rank, directory)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        os._exit(1)
+
+
+def lm_mesh_run(torch, np, rank: int, directory: str) -> None:
+    """(a) and (b) on this rank: phase 11's weights placed on the (1, 2)
+    mesh by ``ShardingPlan`` (each rank draws the full weights, keeps its
+    shards and frees the rest), its logits and record written beside the
+    inputs."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import ShardingPlan, distribute_params
+    from repro_torch.launch.mesh import make_production_mesh, mesh_device
+    from repro_torch.roofline.analysis import CollectiveCounter
+
+    mesh = make_production_mesh(data=LM_MESH_SHAPE[0], model=LM_MESH_SHAPE[1])
+    dev = mesh_device(mesh)
+    cfg_s = get_config(LM_MESH_SERVE["arch"])
+    cfg_t = lm_mesh_train_cfg(get_config(LM_MESH_TRAIN["arch"]))
+    prompt, batch = lm_mesh_inputs(np, cfg_s, cfg_t)
+
+    def placed(cfg):
+        full = lm_mesh_weights(torch, cfg, dev)
+        out = distribute_params(full, ShardingPlan(mesh))
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    params = placed(cfg_s)
+    serve = lm_mesh_serve(torch, np, params, cfg_s, prompt, dev, mesh=mesh,
+                          counter=CollectiveCounter())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = placed(cfg_t)
+    train = lm_mesh_train(torch, params, cfg_t, batch, dev, mesh=mesh)
+    del params
+    np.savez(os.path.join(directory, f"rank{rank}_logits.npz"),
+             prefill=serve.pop("prefill"), decode=np.stack(serve.pop("decode")))
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as fh:
+        json.dump({"serve": serve, "train": train}, fh)
+
+
+def start_dryrun(directory: str) -> list:
+    """(c) started: each cell's ``python -m repro_torch.launch.dryrun`` in
+    a process of its own, side by side: fake tensors, no tensor on the card
+    (the card stays visible: autograd's backward for CUDA tensors, fake
+    ones included, runs on the card's device thread)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(directory, f"{arch}__{shape}.json")
+        log = open(os.path.join(directory, f"{arch}__{shape}.log"), "w")
+        procs.append((arch, shape, out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out, "--device",
+             DRYRUN_DEVICE],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_dryrun(procs, t0: float) -> dict:
+    """(c) collected: every cell's record and its H100 roofline terms."""
+    cells = {}
+    for arch, shape, out, log, proc in procs:
+        try:
+            proc.wait(timeout=max(DRYRUN_SECONDS - (time.perf_counter() - t0),
+                                  1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        with open(log.name) as fh:
+            tail = fh.read()[-2000:]
+        check(proc.returncode == 0 and os.path.exists(out),
+              f"phase 14: the dry run of {arch} x {shape} failed "
+              f"(exit {proc.returncode}): {tail}")
+        with open(out) as fh:
+            rec = json.load(fh)
+        terms = rec["roofline_h100"]
+        ca = rec["cost_analysis"]
+        check(ca["flops_per_device"] > 0 and ca["bytes_per_device"] > 0
+              and terms["bound_s"] > 0
+              and all(math.isfinite(terms[k]) for k in
+                      ("compute_s", "memory_s", "collective_s")),
+              f"phase 14: {arch} x {shape}: empty or non-finite counts")
+        cells[f"{arch}__{shape}"] = rec
+    return cells
+
+
+def phase_lm_mesh(torch, np, dev, card: str) -> dict:
+    """Phase 14: (c) started on the host, then the single-card references
+    of (a) and (b), the two ranks' runs held against them, and (c)'s
+    records."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "lm_mesh")
+    os.makedirs(root, exist_ok=True)
+    dry = start_dryrun(root)
+
+    cfg_s = get_config(LM_MESH_SERVE["arch"])
+    cfg_t = lm_mesh_train_cfg(get_config(LM_MESH_TRAIN["arch"]))
+    prompt, batch = lm_mesh_inputs(np, cfg_s, cfg_t)
+    params = lm_mesh_weights(torch, cfg_s, dev)
+    one_s = lm_mesh_serve(torch, np, params, cfg_s, prompt, dev)
+    # the control: each sequence alone (the same math, other kernels)
+    alone = [lm_mesh_serve(torch, np, params, cfg_s, prompt[i:i + 1], dev)
+             for i in range(prompt.shape[0])]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = lm_mesh_weights(torch, cfg_t, dev)
+    one_t = lm_mesh_train(torch, params, cfg_t, batch, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_") as directory:
+        world = LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1]
+        ranks = spawn_ranks(lm_mesh_rank, world, directory, (),
+                            LM_MESH_SECONDS, 14)
+        logits = [np.load(os.path.join(directory, f"rank{r}_logits.npz"))
+                  for r in range(world)]
+        got = [{"prefill": z["prefill"], "decode": list(z["decode"])}
+               for z in logits]
+    mesh_s = time.perf_counter() - t0 - single_s
+
+    def rel(a, b) -> float:
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def steps_rel(run) -> list:
+        return [rel(run["prefill"], one_s["prefill"])] + [
+            rel(a, b) for a, b in zip(run["decode"], one_s["decode"])]
+
+    control = steps_rel({
+        "prefill": np.concatenate([a["prefill"] for a in alone]),
+        "decode": [np.concatenate([a["decode"][t] for a in alone])
+                   for t in range(LM_MESH_SERVE["decode"])]})
+    bar = min(max(LM_MESH_REL, 2 * max(control)), LM_DECODE_REL)
+    print(f"phase 14: (a) control: the single card with each sequence run "
+          f"alone moves its logits by {max(control):.3e} (prefill "
+          f"{control[0]:.3e}, decode {max(control[1:]):.3e}); the bar is "
+          f"{bar:.3e} (2e-2, or twice that, up to {LM_DECODE_REL})")
+    per_rank = []
+    for r, (rk, lg) in enumerate(zip(ranks, got)):
+        errs = steps_rel(lg)
+        loss_rel = abs(rk["train"]["losses"][0] - one_t["losses"][0]) / abs(
+            one_t["losses"][0])
+        mem = {"serve": rk["serve"]["peak_bytes"] / one_s["peak_bytes"],
+               "train": rk["train"]["peak_bytes"] / one_t["peak_bytes"]}
+        per_rank.append({"logit_rel": errs, "loss_rel": loss_rel,
+                         "memory_ratio": mem, **rk})
+        decode_ms = statistics.median(rk["serve"]["decode_ms"][1:])
+        coll = rk["serve"]["decode_collectives"]
+        pcoll = rk["serve"]["prefill_collectives"]
+        print(f"phase 14: (a) rank {r}: {LM_MESH_SERVE['arch']} on a "
+              f"{LM_MESH_SHAPE[0]}x{LM_MESH_SHAPE[1]} data x model mesh "
+              f"(gloo, one card): prefill {LM_MESH_SERVE['batch']} x "
+              f"{LM_MESH_SERVE['max_seq']} {rk['serve']['prefill_ms']:.1f} ms"
+              f" (single card {one_s['prefill_ms']:.1f}); decode median "
+              f"{decode_ms:.1f} ms a token (single card "
+              f"{statistics.median(one_s['decode_ms'][1:]):.1f}); logits "
+              f"worst rel {max(errs):.3e} (limit {bar:.3e}); per step "
+              f"{[round(e, 5) for e in errs]}; peak "
+              f"{rk['serve']['peak_bytes'] / 2**30:.2f} GiB = "
+              f"{mem['serve']:.3f} of the single card's "
+              f"{one_s['peak_bytes'] / 2**30:.2f} GiB (limit "
+              f"{LM_MESH_MEMORY}); a decode step's collectives "
+              f"{coll['op_counts']} {coll['total'] / 1e6:.3f} MB, the "
+              f"prefill's {pcoll['op_counts']} {pcoll['total'] / 1e6:.3f} "
+              f"MB; {card}")
+        print(f"phase 14: (b) rank {r}: {LM_MESH_TRAIN['arch']} train step "
+              f"at {LM_MESH_TRAIN['batch']} x {LM_MESH_TRAIN['seq']}: loss "
+              f"{rk['train']['losses'][0]:.5f} vs single card "
+              f"{one_t['losses'][0]:.5f} (rel {loss_rel:.2e}, limit "
+              f"{LM_MESH_LOSS_REL}); second step "
+              f"{rk['train']['step_ms'][1]:.1f} ms (single card "
+              f"{one_t['step_ms'][1]:.1f}); peak "
+              f"{rk['train']['peak_bytes'] / 2**30:.2f} GiB = "
+              f"{mem['train']:.3f} of the single card's "
+              f"{one_t['peak_bytes'] / 2**30:.2f} GiB; {card}")
+    for r, pr in enumerate(per_rank):
+        errs = pr["logit_rel"]
+        check(all(math.isfinite(e) for e in errs) and max(errs) <= bar,
+              f"phase 14: rank {r}: sharded logits off the single card's "
+              f"({max(errs):.3e}, limit {bar:.3e})")
+        check(pr["loss_rel"] <= LM_MESH_LOSS_REL,
+              f"phase 14: rank {r}: sharded loss off the single card's "
+              f"({pr['loss_rel']:.3e}, limit {LM_MESH_LOSS_REL})")
+        check(pr["memory_ratio"]["serve"] <= LM_MESH_MEMORY,
+              f"phase 14: rank {r}: peak memory "
+              f"{pr['memory_ratio']['serve']:.3f} of the single card's "
+              f"(limit {LM_MESH_MEMORY})")
+
+    cells = finish_dryrun(dry, t0)
+    for key, rec in cells.items():
+        t = rec["roofline_h100"]
+        ca = rec["cost_analysis"]
+        mem = rec["memory_per_device"]
+        print(f"phase 14: (c) {key} on a fake {rec['mesh']} mesh "
+              f"(fsdp {rec['fsdp']}, periods run {rec['periods_run']} of "
+              f"{ca['scan_periods']}): per device {ca['flops_per_device']:.4g}"
+              f" FLOP, {ca['bytes_per_device']:.4g} B accessed, "
+              f"{ca['collective_bytes_per_device']:.4g} B of collectives "
+              f"{rec['collectives']['op_counts']}, peak "
+              f"{mem['peak_bytes_est'] / 2**30:.1f} GiB; H100 roofline "
+              f"compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g} "
+              f"s, collective {t['collective_s']:.4g} s, dominant "
+              f"{t['dominant']}, useful FLOPs {t['useful_flops_ratio']:.3f} "
+              f"(the H100 model's peaks, not a card run); "
+              f"{rec['compile_s']:.1f} s on the host")
+    print(f"phase 14: single card {single_s:.1f} s, mesh {mesh_s:.1f} s, "
+          f"in all {time.perf_counter() - t0:.1f} s")
+    strip = lambda d: {k: v for k, v in d.items()
+                       if k not in ("prefill", "decode")}
+    return {"card": card, "mesh": list(LM_MESH_SHAPE), "serve": LM_MESH_SERVE,
+            "control_rel": control, "logit_bar": bar,
+            "train": LM_MESH_TRAIN, "single_card": {"serve": strip(one_s),
+                                                    "train": one_t},
+            "per_rank": per_rank, "dryrun": cells}
+
+
 def run(args) -> int:
     try:
         import torch
@@ -4426,7 +4860,7 @@ def run(args) -> int:
 
 
 def drive(torch, np, args, cache_dir: str) -> int:
-    """Phases 1-13 on the card; the registry persists under ``cache_dir``."""
+    """Phases 1-14 on the card; the registry persists under ``cache_dir``."""
     import repro_torch.exec as rt
     from repro_torch.graphs.datasets import DATASETS, load_dataset
     from repro_torch.kernels import _build
@@ -4503,6 +4937,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
     t13 = time.perf_counter()
     sim_phase = phase_sim(torch, np, fv, data, graph, dev, card, args.dataset)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    lm_mesh = phase_lm_mesh(torch, np, dev, card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
     def summary(key):
         """Per forward pass: the sum over its two layer launches."""
@@ -4587,6 +5024,9 @@ def drive(torch, np, args, cache_dir: str) -> int:
     print(json.dumps({"lm": lm_phase}))
     print(json.dumps({"train": train_phase}))
     print(json.dumps({"sim": sim_phase}))
+    dryrun = lm_mesh.pop("dryrun")
+    print(json.dumps({"lm_mesh": lm_mesh}))
+    print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -8,10 +8,14 @@ of axis names, or None.  :func:`spec_viable` and :func:`select_spec` read
 the axis sizes of any mesh form ``dist.topology.axis_sizes`` takes.
 
 With no active mesh (unit tests, single-card runs) ``constrain`` and
-``constrain_ranked`` are the identity, as in the reference.  The LM under
-a mesh (tensor parallelism over ``torch.distributed``) is ROADMAP item
-A13b: under an active mesh both raise rather than silently leave the
-tensor unsharded.
+``constrain_ranked`` are the identity, as in the reference.  Under an
+active ``DeviceMesh`` the reference's ``with_sharding_constraint``
+becomes ``DTensor.redistribute`` to the placements of the chosen spec
+(``dist.sharding.placements``); a plain tensor is every rank's full
+copy, so laying it out is a local slice with no traffic.  An abstract
+mesh (a mapping) has no ranks: the planners read it through
+``select_spec`` / ``ranked_spec`` and never call ``constrain`` under it,
+which raises there.
 
 The active mesh is installed by ``sharding_policy(mesh)``.  State is
 thread-local, as in the reference.
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Iterator, Optional, Sequence, Tuple, Union
+from typing import Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 from repro_torch.dist.topology import axis_sizes
 
@@ -82,21 +86,83 @@ def select_spec(mesh, shape: Sequence[int], specs: Sequence[Spec]):
     return None
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} under an active mesh: the LM under a mesh (tensor "
-        f"parallelism) is ROADMAP item A13b, not ported yet")
+def _as_dtensor(x, mesh):
+    """``x`` as a DTensor on ``mesh``: itself when it is one, else every
+    rank's full copy (replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _run_mesh(what: str):
+    """The active mesh, None without one; raises under an abstract mesh."""
+    mesh = active_mesh()
+    if isinstance(mesh, Mapping):
+        raise TypeError(
+            f"{what} under an abstract mesh: only a run has ranks to place "
+            "a tensor on; give sharding_policy a DeviceMesh")
+    return mesh
+
+
+def _apply(x, mesh, spec):
+    """``x`` redistributed to ``spec`` on ``mesh`` (a ``DeviceMesh``)."""
+    from repro_torch.dist.sharding import placements
+
+    x = _as_dtensor(x, mesh)
+    want = placements(mesh, spec)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def constrain_to(x, spec: Spec):
+    """``x`` (a DTensor, or every rank's full copy) laid out by ``spec``
+    on the active ``DeviceMesh``."""
+    mesh = _run_mesh("constrain_to")
+    if mesh is None:
+        raise RuntimeError("constrain_to needs an active mesh")
+    return _apply(x, mesh, tuple(spec))
 
 
 def constrain(x, specs: Sequence[Spec]):
-    """The identity with no active mesh; raises under one (A13b)."""
-    if active_mesh() is None:
+    """``x`` laid out by the first viable candidate spec on the active
+    mesh (``DTensor.redistribute``; a plain tensor is every rank's full
+    copy, so sharding it is a local slice); the identity with no active
+    mesh, or when no candidate fits."""
+    mesh = _run_mesh("constrain")
+    if mesh is None:
         return x
-    raise _unported("constrain")
+    spec = select_spec(mesh, tuple(x.shape), specs)
+    if spec is None:
+        return x
+    return _apply(x, mesh, spec)
 
 
 def constrain_ranked(x, specs: Sequence[Spec]):
-    """The identity with no active mesh; raises under one (A13b)."""
-    if active_mesh() is None:
+    """``x`` laid out by the viable candidate that
+    ``plan.cost.rank_specs`` ranks cheapest (estimated per-device
+    collective bytes to keep its replicas in sync; ties to the earlier
+    candidate): the chooser for placements that decide a collective's
+    shape, e.g. the MoE dispatch buffer's."""
+    mesh = _run_mesh("constrain_ranked")
+    if mesh is None:
         return x
-    raise _unported("constrain_ranked")
+    spec = ranked_spec(mesh, tuple(x.shape), specs, x.element_size())
+    if spec is None:
+        return x
+    return _apply(x, mesh, spec)
+
+
+def ranked_spec(mesh, shape: Sequence[int], specs: Sequence[Spec],
+                dtype_bytes: int = 4):
+    """The viable candidate ``plan.cost.rank_specs`` ranks first (as a
+    tuple), or None when nothing fits."""
+    viable = [tuple(s) for s in specs if spec_viable(mesh, shape, s)]
+    if not viable:
+        return None
+    from repro_torch.plan.cost import rank_specs  # dist stays base-layer
+
+    return viable[rank_specs(axis_sizes(mesh), shape, viable, dtype_bytes)]

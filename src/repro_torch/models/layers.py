@@ -37,7 +37,9 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.dist.policy import constrain, constrain_ranked
+from repro_torch.dist.policy import (active_mesh, constrain, constrain_ranked,
+                                     constrain_to, select_spec,
+                                     sharding_policy)
 
 Params = Dict[str, torch.Tensor]
 Device = Union[None, str, torch.device]
@@ -68,7 +70,15 @@ def remat(fn, *args):
         return fn(*args)
     from torch.utils.checkpoint import checkpoint
 
-    return checkpoint(fn, *args, use_reentrant=False,
+    mesh = active_mesh()
+
+    def run(*a):
+        # the recomputation may run on autograd's device thread: give it
+        # the caller's (thread-local) sharding policy
+        with sharding_policy(mesh):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=False)
 
 
@@ -167,7 +177,25 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator, device: Device = None,
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, _ = x.shape
+    if _is_dtensor(x):
+        x = _whole_heads(x, n_heads)
     return x.reshape(b, s, n_heads, -1)
+
+
+def _whole_heads(x, n_heads: int):
+    """``x`` (a DTensor) with its last dim sharded only where each rank
+    gets whole heads: DTensor cannot split a shard that cuts a head, so
+    a last dim sharded finer than the heads is replicated first."""
+    from torch.distributed.tensor import Replicate
+
+    last = x.ndim - 1
+    shards = math.prod(x.device_mesh.size(i)
+                       for i, pl in enumerate(x.placements)
+                       if pl.is_shard(last))
+    if n_heads % shards == 0:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if pl.is_shard(last) else pl for pl in x.placements])
 
 
 ATTN_Q_BLOCK = 512   # query-block size of the memory-bounded full-sequence path
@@ -180,7 +208,208 @@ _SCORE_SPECS = [
 ]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def along_whole_dim(fn, x, dim: int):
+    """``fn(x)`` for an op along ``dim`` that maps each slice of ``dim``
+    on its own (a roll, a shift): on a DTensor whose ``dim`` is whole on
+    every rank, each rank applies it to its own shard (DTensor has no
+    rule for such ops on the card's torch)."""
+    if not _is_dtensor(x):
+        return fn(x)
+    if any(p.is_shard(dim) for p in x.placements):
+        raise ValueError(f"dim {dim} is sharded")
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _grad_placements(place, out_place) -> list:
+    """The placements of the gradient of a local input laid out by
+    ``place`` whose result is laid out by ``out_place``: where the input is
+    whole on every rank of a mesh dim the result splits, each rank's
+    gradient is a partial sum over that dim."""
+    from torch.distributed.tensor import Partial
+
+    return [Partial() if p.is_replicate() and o.is_shard() else p
+            for p, o in zip(place, out_place)]
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum of every rank's ``x`` over ``group``; the gradient of each
+    rank's ``x`` is the (replicated) gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def vocab_parallel_embedding(embed, tokens):
+    """``embed[tokens]`` for an embedding table (a DTensor) whose rows are
+    sharded over the mesh (Megatron's vocab-parallel embedding): each rank
+    looks up the tokens whose rows it holds, zeros the rest, and the sum
+    over the ranks holding the vocab is every token's row.  No rank reads
+    another's rows.  (DTensor's own rule keeps a masked partial that
+    cannot be read twice, nor take a gradient back.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = embed.device_mesh
+    vocab = [i for i, p in enumerate(embed.placements) if p.is_shard(0)]
+    place = [p if i in vocab else Replicate()
+             for i, p in enumerate(embed.placements)]
+    if list(embed.placements) != place:
+        embed = embed.redistribute(mesh, place)
+    if not _is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tplace = [Replicate() if i in vocab else p
+              for i, p in enumerate(tokens.placements)]
+    if list(tokens.placements) != tplace:
+        tokens = tokens.redistribute(mesh, tplace)
+    # each rank's rows take the gradient of its own tokens: a partial sum
+    # over the axes that split the batch
+    rows = embed.to_local(grad_placements=_grad_placements(place, tplace))
+    n, coord, lo = rows.shape[0], mesh.get_coordinate(), 0
+    for i in vocab:
+        lo = lo * mesh.size(i) + coord[i]
+    lo *= n
+    tok = tokens.to_local()
+    mine = (tok >= lo) & (tok < lo + n)
+    out = torch.where(mine[..., None], rows[(tok - lo).clamp(0, n - 1)], 0)
+    for i in vocab:
+        out = _SumOverGroup.apply(out, mesh.get_group(i))
+    shape = tuple(tokens.shape) + (embed.shape[1],)
+    return DTensor.from_local(out, mesh, tplace, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def row_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` where ``a``'s last dim may be sharded: a row-parallel
+    weight (``wo``, ``down``) or a product after a sharded carry (the SSM
+    readouts and recurrences).
+
+    Under a mesh where the contraction is sharded over ranks, each rank's
+    partial product is kept in f32 and the partials are summed across the
+    ranks in f32 before the one rounding to ``a``'s dtype, as the single
+    card's product accumulates in f32 and rounds once.  (Partials rounded
+    to bf16 on each rank and rounded again after their sum drift by ~2% of
+    max|logits| over qwen3-8b's 36 layers.)  Elsewhere it is ``a @ w``."""
+    if not _is_dtensor(a) or not any(p.is_shard(a.ndim - 1)
+                                     for p in a.placements):
+        return a @ w
+    from torch.distributed.tensor import Replicate
+
+    y = a.float() @ w.float()
+    return y.redistribute(y.device_mesh, [
+        Replicate() if p.is_partial() else p
+        for p in y.placements]).to(a.dtype)
+
+
+def whole_sequence(x):
+    """``x`` (B, S, ...) with its sequence dim whole on every rank.
+
+    Under a mesh the residual stream between periods is sharded over its
+    sequence (the reference's sequence-parallel constraint); a block's
+    products need every position, so the normed input is all-gathered
+    over the sequence first, as Megatron's sequence parallelism does
+    (DTensor would flatten a sharded sequence into a matmul's rows, which
+    the card's torch refuses).  A plain tensor is returned as it is."""
+    if not _is_dtensor(x) or not any(p.is_shard(1) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in x.placements])
+
+
+def _head_local(fn, tensors, specs, out_spec, out_shape):
+    """``fn`` over the local shards of ``tensors`` under the active mesh,
+    each laid out by its spec first; its result is this rank's shard of a
+    DTensor of ``out_shape`` laid out by ``out_spec``.
+
+    Attention is head-local (Megatron's head parallelism): with the batch
+    over the data axes and the heads over ``model`` no rank needs another
+    rank's heads.  DTensor's einsum would flatten a sharded head dim into
+    a batched matmul's batch, which it cannot do without a strided shard
+    (the card's torch refuses it), so the heads' products run on the
+    local shards here instead.  The policy is off inside: the local
+    tensors are shards, not full copies."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import placements
+
+    mesh = active_mesh()
+    out_place = placements(mesh, out_spec)
+    local = []
+    for t, spec in zip(tensors, specs):
+        if t is None or spec is None:
+            local.append(t.full_tensor() if _is_dtensor(t) else t)
+        else:
+            t = constrain_to(t, spec)
+            local.append(t.to_local(grad_placements=_grad_placements(
+                t.placements, out_place)))
+    with sharding_policy(None):
+        out = fn(*local)
+    stride = torch.empty(out_shape, device="meta").stride()
+    return DTensor.from_local(out, mesh, out_place, run_check=False,
+                              shape=torch.Size(out_shape), stride=stride)
+
+
+def _batch_heads(batch: int, heads: int):
+    """(batch entry, head entry) of the active mesh: the batch over the
+    data axes as ``batch_spec`` shards a batch, the heads over ``model``
+    when they divide (else every model rank holds them all)."""
+    from repro_torch.dist.sharding import batch_spec
+    from repro_torch.dist.topology import axis_sizes
+
+    mesh = active_mesh()
+    bspec = batch_spec(mesh, batch)
+    msize = axis_sizes(mesh).get("model", 1)
+    return (bspec[0] if bspec else None,
+            "model" if msize > 1 and heads % msize == 0 else None)
+
+
 def _sdpa(
+    q: torch.Tensor,            # (B, S_q, H, hd)
+    k: torch.Tensor,            # (B, S_k, KV, hd)
+    v: torch.Tensor,            # (B, S_k, KV, hd_v)
+    mask: Optional[torch.Tensor],  # broadcastable to (B, 1, S_q, S_k), bool
+) -> torch.Tensor:
+    if not (_is_dtensor(q) or _is_dtensor(k)):
+        return _sdpa_local(q, k, v, mask)
+    # under a mesh: the kv heads (and their query groups) over ``model``,
+    # else the query positions (each attends on its own), else neither
+    b, sq, h, _ = q.shape
+    dp, heads = _batch_heads(b, k.shape[2])
+    if mask is not None and mask.shape[0] != 1:
+        raise ValueError("a per-sequence mask under a mesh")
+    if heads is not None or _batch_heads(b, sq)[1] is None:
+        spec = (dp, None, heads, None)
+        return _head_local(_sdpa_local, (q, k, v, mask),
+                           (spec, spec, spec, None), (dp, None, heads),
+                           (b, sq, h * v.shape[3]))
+    rows = (dp, "model", None, None)
+    kv = (dp, None, None, None)
+    mspec = ((None, None, "model", None)
+             if mask is not None and mask.shape[2] == sq else None)
+    return _head_local(_sdpa_local, (q, k, v, mask), (rows, kv, kv, mspec),
+                       (dp, "model", None), (b, sq, h * v.shape[3]))
+
+
+def _sdpa_local(
     q: torch.Tensor,            # (B, S_q, H, hd)
     k: torch.Tensor,            # (B, S_k, KV, hd)
     v: torch.Tensor,            # (B, S_k, KV, hd_v)
@@ -237,7 +466,22 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor,
     s = new.shape[1]
     start = start.clamp(0, cache.shape[1] - s)
     idx = start + torch.arange(s, device=cache.device)
-    return cache.index_copy(1, idx, new.to(cache.dtype))
+    if not _is_dtensor(cache):
+        return cache.index_copy(1, idx, new.to(cache.dtype))
+    # under a mesh: DTensor has no rule for index_copy, and the written dim
+    # (the sequence) is never sharded, so each rank writes its own shard
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, place = cache.device_mesh, tuple(cache.placements)
+    if any(p.is_shard(1) for p in place):
+        raise ValueError("a decode cache sharded over its sequence")
+    if not _is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    local = cache.to_local().index_copy(
+        1, idx, new.redistribute(mesh, place).to_local().to(cache.dtype))
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=cache.shape, stride=cache.stride())
 
 
 def _position(pos, device) -> torch.Tensor:
@@ -397,30 +641,44 @@ def mla_attention(
         k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = _sdpa(qfull, k, v, _causal_mask(positions, positions, 0))
-        return out @ p["wo"], None
+        return row_product(out, p["wo"]), None
 
     # --- absorbed decode: scores live in latent space ----------------------
     pos = _position(cache_pos, x.device)
     new_c = _write_slot(cache["c"], c_kv, pos)
     new_kr = _write_slot(cache["kr"], k_rope[:, :, 0, :], pos)
     wk_b = p["wk_b"].reshape(r, h, dn)
-    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)     # absorb wk_b
-    scores = (
-        torch.einsum("bshr,btr->bhst", q_lat, new_c)
-        + torch.einsum("bshd,btd->bhst", q_rope, new_kr)
-    ).float() / math.sqrt(dn + dr)
-    scores = constrain(scores, [
-        (("pod", "data"), "model", None, None), ("data", "model", None, None),
-        (("pod", "data"), None, None, "model"), ("data", None, None, "model"),
-    ])
-    valid = torch.arange(new_c.shape[1], device=x.device) <= pos
-    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhst,btr->bshr", probs, new_c)     # (B,S,H,r)
     wv_b = p["wv_b"].reshape(r, h, dv)
-    out = torch.einsum("bshr,rhv->bshv", o_lat, wv_b)        # absorb wv_b
-    out = out.reshape(b, s, h * dv) @ p["wo"]
-    return out, {"c": new_c, "kr": new_kr}
+
+    def absorbed(q_nope, q_rope, new_c, new_kr, wk_b, wv_b):
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)  # absorb wk_b
+        scores = (
+            torch.einsum("bshr,btr->bhst", q_lat, new_c)
+            + torch.einsum("bshd,btd->bhst", q_rope, new_kr)
+        ).float() / math.sqrt(dn + dr)
+        scores = constrain(scores, [
+            (("pod", "data"), "model", None, None),
+            ("data", "model", None, None),
+            (("pod", "data"), None, None, "model"),
+            ("data", None, None, "model"),
+        ])
+        valid = torch.arange(new_c.shape[1], device=new_c.device) <= pos
+        scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, new_c)  # (B,S,H,r)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, wv_b)     # absorb wv_b
+        return out.reshape(o_lat.shape[0], s, -1)
+
+    args = (q_nope, q_rope, new_c, new_kr, wk_b, wv_b)
+    if any(_is_dtensor(t) for t in args):
+        dp, heads = _batch_heads(b, h)
+        qs, cs, ws = (dp, None, heads, None), (dp, None, None), \
+            (None, heads, None)
+        out = _head_local(absorbed, args, (qs, qs, cs, cs, ws, ws),
+                          (dp, None, heads), (b, s, h * dv))
+    else:
+        out = absorbed(*args)
+    return row_product(out, p["wo"]), {"c": new_c, "kr": new_kr}
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -452,7 +710,7 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, device: Device = None,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    return row_product(silu(x @ p["gate"]) * (x @ p["up"]), p["down"])
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, device: Device = None) -> Params:
@@ -476,10 +734,61 @@ def init_moe(cfg: ArchConfig, gen: torch.Generator, device: Device = None) -> Pa
     return p
 
 
+# tokens (and routed copies) sharded over the batch axes
+_TOKEN_SPECS = [(("pod", "data"), None), ("data", None)]
+
 EXPERT_BUF_SPECS = (
     ("model", "data", None), ("model", None, None),
     (None, ("pod", "data"), None), (None, "data", None),
 )
+
+
+def _combine_on_token_shards(tok, weighted, n: int):
+    """Under a mesh: each token's weighted expert outputs summed into its
+    row, on the rank holding the token.  The routed rows follow their
+    tokens (row ``j`` is token ``j // k``'s), so with both laid out over
+    the same batch axes each rank sums its own rows into its own tokens
+    (the card's torch plans ``index_add`` over such shards wrongly)."""
+    mesh = active_mesh()
+    d = weighted.shape[1]
+    entry = select_spec(mesh, (n, d), _TOKEN_SPECS)
+    entry = None if entry is None else entry[0]
+    spec = (entry,) if entry is not None else (None,)
+    if entry is not None and weighted.shape[0] % _entry_size(mesh, entry):
+        entry, spec = None, (None,)
+    per = n // _entry_size(mesh, entry)
+    lo = per * _axes_index(mesh, entry)
+
+    def combine(t, w):
+        out = torch.zeros((per, d), dtype=w.dtype, device=w.device)
+        return out.index_add(0, t - lo, w)
+
+    return _head_local(combine, (tok, weighted), (spec, spec + (None,)),
+                       spec + (None,), (n, d))
+
+
+def _entry_size(mesh, entry) -> int:
+    """The number of shards a spec entry makes (1 for None)."""
+    from repro_torch.dist.topology import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    axes = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    return math.prod(sizes[a] for a in axes)
+
+
+def _axes_index(mesh, entry) -> int:
+    """This rank's position along the mesh axes of a spec entry (major to
+    minor), 0 for None."""
+    if entry is None:
+        return 0
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        i = names.index(a)
+        idx = idx * mesh.size(i) + coord[i]
+    return idx
 
 
 def moe_capacity(n_tokens: int, moe: MoEConfig) -> int:
@@ -503,7 +812,7 @@ def moe_layer(p: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
     b, s, d = x.shape
     n = b * s
     e, k = moe.n_experts, moe.top_k
-    xt = x.reshape(n, d)
+    xt = constrain(x.reshape(n, d), _TOKEN_SPECS)
     logits = xt.float() @ p["router"].float()
     gates, eids = torch.topk(logits, k, dim=-1)             # (N, k)
     gates = torch.softmax(gates, dim=-1)
@@ -518,9 +827,12 @@ def moe_layer(p: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
 
     keep = pos < cap                                        # dropped overflow
     safe_pos = torch.where(keep, pos, cap - 1)
-    val = torch.where(keep[:, None], xt[tok], 0)            # (N*k, D)
+    routed = constrain(xt[tok], _TOKEN_SPECS)
+    val = constrain(torch.where(keep[:, None], routed, 0), _TOKEN_SPECS)
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((flat_e, safe_pos), val, accumulate=True)
+    # expert parallelism: the dispatch buffer's spec decides the
+    # token->expert exchange (ranked by the cost model)
     buf = constrain_ranked(buf, EXPERT_BUF_SPECS)
 
     h = silu(torch.einsum("ecd,edw->ecw", buf, p["gate"]))
@@ -528,10 +840,26 @@ def moe_layer(p: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
     out_buf = torch.einsum("ecw,ewd->ecd", h, p["down"])    # (E, cap, D)
     out_buf = constrain_ranked(out_buf, EXPERT_BUF_SPECS)
 
-    gathered = torch.where(keep[:, None], out_buf[flat_e, safe_pos], 0)
-    weighted = gathered * gates.reshape(-1)[:, None].to(x.dtype)
-    out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
-    out = out.index_add(0, tok, weighted)
+    if _is_dtensor(out_buf):
+        # the card's torch has no rule to gather an expert-sharded buffer's
+        # rows by indices sharded over two mesh dims: the buffer goes whole
+        # to every rank here and the indices follow the tokens
+        from torch.distributed.tensor import Replicate
+
+        out_buf = out_buf.redistribute(
+            out_buf.device_mesh, [Replicate()] * out_buf.device_mesh.ndim)
+        flat_e, safe_pos = (constrain(t, [(("pod", "data"),), ("data",)])
+                            for t in (flat_e, safe_pos))
+    gathered = constrain(out_buf[flat_e, safe_pos], _TOKEN_SPECS)
+    gathered = torch.where(keep[:, None], gathered, 0)
+    weighted = constrain(gathered * gates.reshape(-1)[:, None].to(x.dtype),
+                         _TOKEN_SPECS)
+    if _is_dtensor(weighted):
+        out = _combine_on_token_shards(tok, weighted, n)
+    else:
+        out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
+        out = out.index_add(0, tok, weighted)
+    out = constrain(out, _TOKEN_SPECS)
 
     if "shared" in p:
         out = out + mlp(p["shared"], xt)

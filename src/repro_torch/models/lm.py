@@ -166,6 +166,20 @@ def n_body_periods(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``x + out``.  Under a mesh, onto a sequence-sharded residual
+    ``out`` is first laid out as ``x`` (its slice of the sequence) by an
+    explicit redistribute, whose gradient comes back whole: an implicit
+    one inside the add would hand ``out``'s product a sequence-sharded
+    gradient, which the card's torch cannot flatten into the product's
+    rows."""
+    if L._is_dtensor(x) and L._is_dtensor(out) \
+            and any(p.is_shard(1) for p in x.placements) \
+            and tuple(out.placements) != tuple(x.placements):
+        out = out.redistribute(x.device_mesh, x.placements)
+    return x + out
+
+
 def _apply_block(
     cfg: ArchConfig,
     kind: str,
@@ -182,7 +196,7 @@ def _apply_block(
     def sub(name):
         return None if cache is None else cache[name]
 
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = L.whole_sequence(L.rms_norm(x, p["norm1"], cfg.norm_eps))
     if mixer == "attn":
         if cfg.mla is not None:
             out, c = L.mla_attention(p["mix"], h, cfg, positions,
@@ -190,28 +204,28 @@ def _apply_block(
         else:
             out, c = L.attention(p["mix"], h, cfg, positions,
                                  cache=sub("self"), cache_pos=cache_pos)
-            out = out @ p["mix"]["wo"]
+            out = L.row_product(out, p["mix"]["wo"])
         if c is not None:
             new_cache["self"] = c
     elif mixer == "xattn":
         out, c = L.attention(p["mix"], h, cfg, positions, kv_source=memory,
                              cache=sub("cross"), cache_pos=cache_pos,
                              causal=False, cross=True)
-        out = out @ p["mix"]["wo"]
+        out = L.row_product(out, p["mix"]["wo"])
         if c is not None:
             new_cache["cross"] = c
     elif mixer == "attnx":
         out, c = L.attention(p["mix"], h, cfg, positions,
                              cache=sub("self"), cache_pos=cache_pos)
-        out = out @ p["mix"]["wo"]
+        out = L.row_product(out, p["mix"]["wo"])
         if c is not None:
             new_cache["self"] = c
-        x = x + out
-        h = L.rms_norm(x, p["norm_c"], cfg.norm_eps)
+        x = _residual(x, out)
+        h = L.whole_sequence(L.rms_norm(x, p["norm_c"], cfg.norm_eps))
         out, c = L.attention(p["cross"], h, cfg, positions, kv_source=memory,
                              cache=sub("cross"), cache_pos=cache_pos,
                              causal=False, cross=True)
-        out = out @ p["cross"]["wo"]
+        out = L.row_product(out, p["cross"]["wo"])
         if c is not None:
             new_cache["cross"] = c
     elif mixer in ("mamba", "mlstm", "slstm"):
@@ -222,13 +236,13 @@ def _apply_block(
             new_cache["state"] = c
     else:
         raise ValueError(mixer)
-    x = x + out
+    x = _residual(x, out)
     if ffn is not None:
-        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        h = L.whole_sequence(L.rms_norm(x, p["norm2"], cfg.norm_eps))
         if "router" in p["ffn"]:
-            x = x + L.moe_layer(p["ffn"], h, cfg.moe)
+            x = _residual(x, L.moe_layer(p["ffn"], h, cfg.moe))
         else:
-            x = x + L.mlp(p["ffn"], h)
+            x = _residual(x, L.mlp(p["ffn"], h))
     return x, (new_cache if cache is not None else None)
 
 
@@ -246,13 +260,17 @@ def encode(params: Params, cfg: ArchConfig,
     for blk in unstack_periods(params["encoder"], cfg.encoder_layers):
         h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
         out, _ = L.attention(blk["mix"], h, enc_cfg, positions, causal=False)
-        x = x + out @ blk["mix"]["wo"]
+        x = _residual(x, L.row_product(out, blk["mix"]["wo"]))
         h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
-        x = x + L.mlp(blk["ffn"], h)
+        x = _residual(x, L.mlp(blk["ffn"], h))
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if L._is_dtensor(params["embed"]) and any(
+            p.is_shard(0) for p in params["embed"].placements):
+        return L.vocab_parallel_embedding(params["embed"], tokens).to(
+            torch.bfloat16)
     return params["embed"][tokens].to(torch.bfloat16)
 
 
@@ -288,7 +306,7 @@ def forward_hidden(
     for period in unstack_periods(params["blocks"], n_body_periods(cfg)):
         x = L.remat(body, x, period, memory) if remat else body(
             x, period, memory)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.whole_sequence(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
 def head(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -315,7 +333,8 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     (``repro_torch.train.value_and_grad``, ``launch.steps.build_train_step``).
     """
     x = forward_hidden(params, cfg, tokens, memory, remat=remat)
-    targets = torch.roll(tokens, -1, dims=1).long()      # y_t = token_{t+1}
+    targets = L.along_whole_dim(                          # y_t = token_{t+1}
+        lambda t: torch.roll(t, -1, dims=1), tokens, 1).long()
     b, s, _ = x.shape
     w_head = head(params, cfg)
     chunk = min(cfg.loss_chunk, s)
@@ -327,7 +346,14 @@ def lm_loss(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     def chunk_nll(x_c, y_c, w_c, w_head):
         logits = (x_c @ w_head.to(x_c.dtype)).float()
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, y_c[..., None])[..., 0]
+        if L._is_dtensor(logits):
+            # DTensor's gather over a vocab-sharded dim fails to reduce its
+            # mask; picking the target by a one-hot sum is the same value
+            # and keeps the logits sharded
+            vocab = torch.arange(logits.shape[-1], device=y_c.device)
+            tgt = torch.where(vocab == y_c[..., None], logits, 0.0).sum(-1)
+        else:
+            tgt = logits.gather(-1, y_c[..., None])[..., 0]
         return ((lse - tgt) * w_c).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.dist.policy import constrain
+from repro_torch.models import layers as L
 from repro_torch.models.layers import (Device, dense_init, normal, remat,
                                        silu, softplus)
 
@@ -141,7 +142,7 @@ def mamba_block(
 
     (h,), y = chunked_scan(step, (h,), s)                # y (B,S,d_in)
     y = y + xc.float() * p["d_skip"]
-    y = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
+    y = L.row_product(y.to(x.dtype) * silu(z), p["out_proj"])
 
     new_state = {
         "ssm": h,
@@ -249,7 +250,7 @@ def mlstm_block(
     y = ys.reshape(b, s, d_in).to(x.dtype)
     og = torch.einsum("bshd,hde->bshe", xh, p["wo_gate"]).reshape(b, s, d_in)
     y = y * silu(og)
-    out = (y * silu(z)) @ p["down_proj"]
+    out = L.row_product(y * silu(z), p["down_proj"])
     return out, {"c": c, "n": n, "m": m}
 
 
@@ -300,7 +301,7 @@ def slstm_block(
 
     def step(carry, t):
         c, n, m, h = carry
-        rec = (h.to(x.dtype) @ p["r"]).float()
+        rec = L.row_product(h.to(x.dtype), p["r"]).float()
         zt = torch.tanh(z_in[:, t] + rec)
         log_f = _log_sigmoid(f_in[:, t])
         i_t = i_in[:, t]
@@ -313,7 +314,7 @@ def slstm_block(
         return (c, n, m_new, h), h
 
     (c, n, m, h), ys = chunked_scan(step, (c, n, m, h), s)
-    y = ys.to(x.dtype) @ p["out_proj"]
+    y = L.row_product(ys.to(x.dtype), p["out_proj"])
     return y, {"c": c, "n": n, "m": m, "h": h}
 
 

@@ -94,7 +94,10 @@ def adamw_init(params: PyTree, dtype=torch.float32) -> AdamWState:
     memory); the step counter on the parameters' device."""
     first = leaves(params)
     device = first[0].device if first else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    # ``zeros_like`` keeps a DTensor parameter's placements (the moments
+    # of a sharded model are sharded as its parameters are)
+    zeros = lambda p: torch.zeros_like(p, dtype=dtype,
+                                       memory_format=torch.contiguous_format)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 

@@ -3,8 +3,8 @@
 the LM CLI (``launch/serve.py``), ``LmServable`` and the fleet's
 ``kind: "lm"``.
 
-The policy cases are ``tests/test_dist.py``'s; under an active mesh the
-port raises naming ROADMAP A13b instead of constraining.  The steps and
+The policy cases are ``tests/test_dist.py``'s; under a live mesh the
+port constrains with ``DTensor.redistribute`` (two gloo ranks).  The steps and
 ``LmServable`` get the reference's weights (carried across as numpy) and
 give its prefill / decode logits and served answers within the logits'
 bar of ``tests/test_torch_lm.py`` (1e-2 x max|reference| at
@@ -97,19 +97,44 @@ def test_sharding_policy_nests_and_restores():
 
 
 def test_constrain_under_a_mesh_raises_naming_a13b():
-    """The reference applies a sharding constraint here; the port has no
-    tensor-parallel LM yet and says so rather than leaving the tensor
-    unsharded.  A model run under the policy raises the same way."""
+    """Under a live mesh (two gloo ranks, a (1, 2) data x model
+    ``make_production_mesh``) ``constrain`` lays a tensor out by its first
+    viable spec and ``constrain_ranked`` by the cost model's pick, with
+    ``DTensor.redistribute``: a plain tensor becomes this rank's slice
+    with no traffic, a DTensor moves between layouts, and a list with no
+    viable spec leaves the tensor as it is.  An abstract mesh has no
+    ranks, so under one both raise, as a model run under it does; outside
+    a policy the model runs."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from _torch_dist import run_ranks
+
+    ranks = run_ranks("_torch_mesh_ranks", "constrain_rank", 2)
+    x = np.arange(32, dtype=np.float32).reshape(8, 4)
+    for r, out in enumerate(ranks):
+        assert out["outside"] and out["unfit"]
+        place, local, whole = out["a"]
+        assert place == str((Replicate(), Shard(dim=1)))
+        np.testing.assert_array_equal(local, x[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(whole, x)
+        place, local = out["b"]
+        assert place == str((Replicate(), Shard(dim=0)))
+        np.testing.assert_array_equal(local, x[4 * r:4 * r + 4])
+        place, local, whole = out["c"]
+        assert place == str((Replicate(), Shard(dim=0)))
+        np.testing.assert_array_equal(local, x[4 * r:4 * r + 4])
+        np.testing.assert_array_equal(whole, x)
+
     mesh = abstract_mesh((1, 1), ("data", "model"))
-    x = torch.ones((4, 4))
+    t = torch.ones((4, 4))
     _, tcfg = lp.cfgs("qwen3-8b")
     params = tlm.init_lm(tcfg, torch.Generator().manual_seed(0), "cpu")
     with tpolicy.sharding_policy(mesh):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            tpolicy.constrain(x, [("data", "model")])
-        with pytest.raises(NotImplementedError, match="A13b"):
-            tpolicy.constrain_ranked(x, [("data", "model")])
-        with pytest.raises(NotImplementedError, match="A13b"):
+        with pytest.raises(TypeError, match="abstract mesh"):
+            tpolicy.constrain(t, [("data", "model")])
+        with pytest.raises(TypeError, match="abstract mesh"):
+            tpolicy.constrain_ranked(t, [("data", "model")])
+        with pytest.raises(TypeError, match="abstract mesh"):
             tlm.forward(params, tcfg, torch.zeros((1, 4), dtype=torch.long))
     assert tlm.forward(params, tcfg, torch.zeros((1, 4), dtype=torch.long)
                        ).shape == (1, 4, tcfg.vocab)
@@ -146,7 +171,9 @@ def test_prefill_and_serve_steps_match_reference(arch):
 def test_train_step_lowers_the_loss_and_mesh_steps_raise():
     """``step_for(cfg, "train")`` at the reference's defaults (AdamW lr
     1e-3 after 100 warmup steps): 30 steps on one batch lower the loss.
-    Under a mesh every kind raises naming A13b."""
+    ``step_for(..., mesh=)`` builds every kind on a ``DeviceMesh`` (here
+    over a fake process group; the sharded steps run in
+    ``tests/test_torch_mesh_lm.py``), and an unknown kind raises."""
     _, tcfg = lp.cfgs("qwen3-8b")
     params = tlm.init_lm(tcfg, torch.Generator().manual_seed(1), "cpu")
     opt = TT.adamw_init(params)
@@ -157,10 +184,16 @@ def test_train_step_lowers_the_loss_and_mesh_steps_raise():
         params, opt, metrics = step(params, opt, tokens)
         losses.append(float(metrics["loss"]))
     assert losses[-1] < losses[0], losses
-    mesh = abstract_mesh((2,), ("data",))
-    for kind in ("train", "prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            tsteps.step_for(tcfg, kind, mesh=mesh, device="cpu")
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with fake_world(2):
+        mesh = make_production_mesh(data=1, model=2, device="cpu")
+        for kind in ("train", "prefill", "decode"):
+            step = tsteps.step_for(tcfg, kind, mesh=mesh)
+            assert callable(step) and step.__name__ == {
+                "train": "train_step", "prefill": "prefill_step",
+                "decode": "serve_step"}[kind]
     with pytest.raises(ValueError):
         tsteps.step_for(tcfg, "score", device="cpu")
 

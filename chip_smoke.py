@@ -268,13 +268,26 @@ Phases, in order; any failure exits non-zero:
    bytes, ``roofline.analysis.CollectiveCounter``); (b) one
    internlm2-1.8b train step at the training CLI's batch 8 x seq 128 on
    the same mesh, its loss within 1e-2 of the single card's, peak memory
-   and the second step's ms; (c) ``python -m repro_torch.launch.dryrun``
-   for qwen3-8b x train_4k and decode_32k and deepseek-v2-lite-16b x
-   decode_32k (its MoE forward; its train_4k backward has no DTensor rule
-   on the card's torch) on a fake 16 x 16 mesh, on the host (no tensor on the card;
+   and the second step's ms, then on a (2, 1) data x model mesh of the
+   same ranks with ``ShardingPlan(fsdp=True)`` (each weight gathered over
+   ``data`` before its products): its loss within 1e-2 of the single
+   card's, its peak at most 0.6 of the single card's (the weights and
+   moments sharded), the second step's ms; (c) ``python -m
+   repro_torch.launch.dryrun`` for qwen3-8b x train_4k and decode_32k and
+   deepseek-v2-lite-16b x train_4k (the reference's cell: its MoE
+   dispatch and combine on token shards) on a fake 16 x 16 mesh, on the
+   host (no tensor on the card;
    each process holds a CUDA context, which autograd's device thread needs),
-   side by side with (a) and (b): each record and its H100 roofline
-   terms (the device model's peaks, not card times).  Gloo's functional
+   side by side with (a), (b) and (d): each record (its peak and its
+   collectives by kind) and its H100 roofline terms (the device model's
+   peaks, not card times); (d) the reduced qwen3-8b, deepseek-v2-lite and
+   jamba (phase 11's seed) on a (2, 2) mesh of four gloo ranks on the
+   card with FSDP: the prefill of a 4 x 16 prompt, 8 cached decode steps
+   and one train step, every rank's whole logits within the arch's bar
+   of phase 11 (2e-2, jamba 4e-2) of the single card's, the loss within
+   1e-2, and the collectives of the MoE layers in the prefill and the
+   train step (calls, bytes, the largest result beside the (E, cap, D)
+   buffer).  Gloo's functional
    all-gather crashes on CUDA tensors on the card's torch, so the mesh
    routes it through ``all_gather_into_tensor``
    (``launch.mesh.gloo_cuda_all_gather``).  At Reddit, phase 9's open
@@ -4452,9 +4465,12 @@ def phase_sim(torch, np, fv, data, graph, dev, card: str,
 # (a) phase 11's qwen3-8b run (its seed, batch 4 x 64 prompt) sharded over
 # a (1, 2) data x model mesh of two gloo ranks on the one card; (b) one
 # train step of internlm2-1.8b at the training CLI's batch 8 x seq 128 and
-# its AdamW settings on the same mesh; (c) the dry run of three production
-# cells on a fake 16 x 16 mesh, on the host.
+# its AdamW settings on the same mesh, and on a (2, 1) mesh of the same
+# ranks with FSDP; (c) the dry run of three production cells on a fake
+# 16 x 16 mesh, on the host; (d) three reduced archs on a (2, 2) mesh of
+# four gloo ranks with FSDP.
 LM_MESH_SHAPE = (1, 2)
+LM_MESH_FSDP_SHAPE = (2, 1)
 LM_MESH_SERVE = dict(arch="qwen3-8b", batch=4, max_seq=64, decode=8)
 LM_MESH_TRAIN = dict(arch="internlm2-1.8b", batch=8, seq=128)
 # The logits' bar, as a share of max|logits|: phase 11's 2e-2, or twice
@@ -4468,11 +4484,15 @@ LM_MESH_REL = 2e-2
 LM_MESH_LOSS_REL = 1e-2
 LM_MESH_MEMORY = 0.6        # a rank's peak over the single-card run's
 LM_MESH_SECONDS = 600
-# deepseek's MoE cell is decode_32k: at train_4k the backward of its
-# dispatch (an index by indices sharded over both mesh dims) has no DTensor
-# rule on the card's torch 2.11 (the CPU tests' 2.13 runs it)
+# (d): the reduced archs (phase 11's seed) at a batch 4 x 16 prompt, its
+# first LM_MESH_SERVE["decode"] tokens decoded, and one train step on it;
+# each rank's logits held to phase 11's card-vs-CPU bar of its arch
+# (LM_REL), the loss to LM_MESH_LOSS_REL
+LM_MESH_REDUCED_SHAPE = (2, 2)
+LM_MESH_REDUCED = ("qwen3-8b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b")
+LM_MESH_REDUCED_BATCH = (4, 16)
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
-                ("deepseek-v2-lite-16b", "decode_32k"))
+                ("deepseek-v2-lite-16b", "train_4k"))
 DRYRUN_SECONDS = 600
 DRYRUN_DEVICE = "cuda"      # the fake tensors' device type (no card used)
 
@@ -4580,9 +4600,102 @@ def lm_mesh_train(torch, params, cfg, batch, dev, mesh=None) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
-def lm_mesh_rank(rank: int, world: int, directory: str) -> None:
+def lm_mesh_reduced_run(torch, np, cfg, dev, mesh=None) -> dict:
+    """(d) for one reduced arch: phase 11's weights (seed SEED, drawn on
+    the host), under ``mesh`` placed by ``ShardingPlan(fsdp=True)``: the
+    prefill logits of a LM_MESH_REDUCED_BATCH prompt, LM_MESH_SERVE
+    ["decode"] cached decode steps over its first tokens and one train
+    step on it (whole logits as f32 numpy, the loss, the ms of each
+    part), and under a mesh the collectives of its MoE layers in the
+    prefill and in the train step (each ``moe_layer`` call, the
+    recomputation of the backward included: a counter around each)."""
+    from repro_torch.dist.sharding import (ShardingPlan, distribute_cache,
+                                           distribute_params)
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, build_train_step)
+    from repro_torch.models import layers, lm
+    from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.train import adamw_init
+
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, LM_MESH_REDUCED_BATCH)
+    params = lm_to(torch, lm.init_lm(cfg, torch.Generator().manual_seed(SEED),
+                                     torch.device("cpu")), dev)
+    cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1], device=dev)
+    if mesh is not None:
+        plan = ShardingPlan(mesh, fsdp=True)
+        params = distribute_params(params, plan)
+        cache = distribute_cache(cache, plan, dp_axes(mesh))
+    whole = ((lambda t: t.full_tensor()) if mesh is not None
+             else (lambda t: t))
+    counters = {"prefill": CollectiveCounter(), "train": CollectiveCounter()}
+    current = [None]
+    inner = layers.moe_layer
+
+    def counted(p, x, moe):
+        if current[0] is None:
+            return inner(p, x, moe)
+        with current[0]:
+            return inner(p, x, moe)
+
+    out = {"decode": [], "ms": {}}
+    layers.moe_layer = counted
+    try:
+        current[0] = counters["prefill"] if mesh is not None else None
+        logits, out["ms"]["prefill"] = timed_ms(torch, lambda: build_prefill_step(
+            cfg, mesh=mesh, device=dev)(params, tokens))
+        out["prefill"] = whole(logits).float().cpu().numpy()
+        current[0] = None
+        serve = build_serve_step(cfg, mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        for t in range(LM_MESH_SERVE["decode"]):
+            logits, cache = serve(params, cache, tokens[:, t:t + 1], t)
+            out["decode"].append(whole(logits).float().cpu().numpy())
+        out["ms"]["decode"] = (time.perf_counter() - t0) * 1e3
+        current[0] = counters["train"] if mesh is not None else None
+        step = build_train_step(cfg, lm_mesh_opt(), mesh=mesh, device=dev)
+        (_, _, metrics), out["ms"]["train"] = timed_ms(
+            torch, lambda: step(params, adamw_init(params), tokens))
+        out["loss"] = float(whole(metrics["loss"]))
+    finally:
+        layers.moe_layer = inner
+    if mesh is not None and cfg.moe is not None:
+        n = tokens.size
+        out["moe_collectives"] = {
+            k: dict(c.summary(), largest=dict(c.largest))
+            for k, c in counters.items()}
+        out["moe_buffer"] = (cfg.moe.n_experts * cfg.d_model
+                             * layers.moe_capacity(n, cfg.moe))
+    return out
+
+
+def lm_mesh_reduced_rank_run(torch, np, rank: int, directory: str) -> None:
+    """(d) on this rank: a LM_MESH_REDUCED_SHAPE mesh, each of
+    LM_MESH_REDUCED through :func:`lm_mesh_reduced_run`; the logits and
+    the record written beside the inputs."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_production_mesh, mesh_device
+
+    mesh = make_production_mesh(data=LM_MESH_REDUCED_SHAPE[0],
+                                model=LM_MESH_REDUCED_SHAPE[1])
+    dev = mesh_device(mesh)
+    record = {}
+    for arch in LM_MESH_REDUCED:
+        res = lm_mesh_reduced_run(torch, np, reduced(get_config(arch)), dev,
+                                  mesh=mesh)
+        np.savez(os.path.join(directory, f"rank{rank}_{arch}.npz"),
+                 prefill=res.pop("prefill"), decode=np.stack(res.pop("decode")))
+        record[arch] = res
+    with open(os.path.join(directory, f"rank{rank}.json"), "w") as fh:
+        json.dump(record, fh)
+
+
+def lm_mesh_rank(rank: int, world: int, directory: str,
+                 run: str = "lm_mesh_run") -> None:
     """One rank of phase 14: joins the gloo group (a ``FileStore`` in
-    ``directory``), runs :func:`lm_mesh_run` and writes its record, or its
+    ``directory``), runs ``run`` (:func:`lm_mesh_run` or
+    :func:`lm_mesh_reduced_rank_run`) and writes its record, or its
     error."""
     import datetime
     import traceback
@@ -4599,7 +4712,7 @@ def lm_mesh_rank(rank: int, world: int, directory: str) -> None:
                                          world),
             rank=rank, world_size=world,
             timeout=datetime.timedelta(seconds=LM_MESH_SECONDS))
-        lm_mesh_run(torch, np, rank, directory)
+        globals()[run](torch, np, rank, directory)
         dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(directory, f"rank{rank}.err"), "w") as fh:
@@ -4610,8 +4723,8 @@ def lm_mesh_rank(rank: int, world: int, directory: str) -> None:
 def lm_mesh_run(torch, np, rank: int, directory: str) -> None:
     """(a) and (b) on this rank: phase 11's weights placed on the (1, 2)
     mesh by ``ShardingPlan`` (each rank draws the full weights, keeps its
-    shards and frees the rest), its logits and record written beside the
-    inputs."""
+    shards and frees the rest), then internlm2's on the (2, 1) mesh with
+    FSDP; its logits and record written beside the inputs."""
     import gc
 
     from repro_torch.configs import get_config
@@ -4625,9 +4738,9 @@ def lm_mesh_run(torch, np, rank: int, directory: str) -> None:
     cfg_t = lm_mesh_train_cfg(get_config(LM_MESH_TRAIN["arch"]))
     prompt, batch = lm_mesh_inputs(np, cfg_s, cfg_t)
 
-    def placed(cfg):
+    def placed(cfg, on=mesh, fsdp=False):
         full = lm_mesh_weights(torch, cfg, dev)
-        out = distribute_params(full, ShardingPlan(mesh))
+        out = distribute_params(full, ShardingPlan(on, fsdp=fsdp))
         del full
         gc.collect()
         torch.cuda.empty_cache()
@@ -4642,10 +4755,19 @@ def lm_mesh_run(torch, np, rank: int, directory: str) -> None:
     params = placed(cfg_t)
     train = lm_mesh_train(torch, params, cfg_t, batch, dev, mesh=mesh)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_mesh = make_production_mesh(data=LM_MESH_FSDP_SHAPE[0],
+                                     model=LM_MESH_FSDP_SHAPE[1])
+    params = placed(cfg_t, fsdp_mesh, fsdp=True)
+    train_fsdp = lm_mesh_train(torch, params, cfg_t, batch, dev,
+                               mesh=fsdp_mesh)
+    del params
     np.savez(os.path.join(directory, f"rank{rank}_logits.npz"),
              prefill=serve.pop("prefill"), decode=np.stack(serve.pop("decode")))
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as fh:
-        json.dump({"serve": serve, "train": train}, fh)
+        json.dump({"serve": serve, "train": train, "train_fsdp": train_fsdp},
+                  fh)
 
 
 def start_dryrun(directory: str) -> list:
@@ -4697,11 +4819,11 @@ def finish_dryrun(procs, t0: float) -> dict:
 
 def phase_lm_mesh(torch, np, dev, card: str) -> dict:
     """Phase 14: (c) started on the host, then the single-card references
-    of (a) and (b), the two ranks' runs held against them, and (c)'s
-    records."""
+    of (a), (b) and (d), the two ranks' runs of (a) and (b) and the four
+    ranks' of (d) held against them, and (c)'s records."""
     import gc
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
 
     t0 = time.perf_counter()
     root = os.path.join(ROOT, "build", "chip_smoke", "lm_mesh")
@@ -4724,6 +4846,9 @@ def phase_lm_mesh(torch, np, dev, card: str) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    one_d = {arch: lm_mesh_reduced_run(torch, np, reduced(get_config(arch)),
+                                       dev)
+             for arch in LM_MESH_REDUCED}
     single_s = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory(prefix="lm_mesh_") as directory:
@@ -4735,6 +4860,15 @@ def phase_lm_mesh(torch, np, dev, card: str) -> dict:
         got = [{"prefill": z["prefill"], "decode": list(z["decode"])}
                for z in logits]
     mesh_s = time.perf_counter() - t0 - single_s
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_reduced_") as directory:
+        world_d = LM_MESH_REDUCED_SHAPE[0] * LM_MESH_REDUCED_SHAPE[1]
+        ranks_d = spawn_ranks(lm_mesh_rank, world_d, directory,
+                              ("lm_mesh_reduced_rank_run",), LM_MESH_SECONDS,
+                              14)
+        got_d = [{arch: dict(np.load(os.path.join(
+            directory, f"rank{r}_{arch}.npz"))) for arch in LM_MESH_REDUCED}
+            for r in range(world_d)]
+    reduced_s = time.perf_counter() - t0 - single_s - mesh_s
 
     def rel(a, b) -> float:
         return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
@@ -4790,6 +4924,69 @@ def phase_lm_mesh(torch, np, dev, card: str) -> dict:
               f"{rk['train']['peak_bytes'] / 2**30:.2f} GiB = "
               f"{mem['train']:.3f} of the single card's "
               f"{one_t['peak_bytes'] / 2**30:.2f} GiB; {card}")
+    fsdp_rank = []
+    for r, rk in enumerate(ranks):
+        tf = rk["train_fsdp"]
+        loss_rel = abs(tf["losses"][0] - one_t["losses"][0]) / abs(
+            one_t["losses"][0])
+        mem = tf["peak_bytes"] / one_t["peak_bytes"]
+        fsdp_rank.append({"loss_rel": loss_rel, "memory_ratio": mem})
+        print(f"phase 14: (b) rank {r}: {LM_MESH_TRAIN['arch']} train step "
+              f"on a {LM_MESH_FSDP_SHAPE[0]}x{LM_MESH_FSDP_SHAPE[1]} data x "
+              f"model mesh with FSDP: loss {tf['losses'][0]:.5f} (rel "
+              f"{loss_rel:.2e} from the single card's, limit "
+              f"{LM_MESH_LOSS_REL}); second step {tf['step_ms'][1]:.1f} ms "
+              f"(single card {one_t['step_ms'][1]:.1f}); peak "
+              f"{tf['peak_bytes'] / 2**30:.2f} GiB = {mem:.3f} of the single "
+              f"card's {one_t['peak_bytes'] / 2**30:.2f} GiB (limit "
+              f"{LM_MESH_MEMORY}); {card}")
+    reduced_rank = []
+    for r, (rk, lg) in enumerate(zip(ranks_d, got_d)):
+        rec = {}
+        for arch in LM_MESH_REDUCED:
+            one, res = one_d[arch], rk[arch]
+            errs = [rel(lg[arch]["prefill"], one["prefill"])] + [
+                rel(a, b) for a, b in zip(lg[arch]["decode"], one["decode"])]
+            loss_rel = abs(res["loss"] - one["loss"]) / abs(one["loss"])
+            rec[arch] = {"logit_rel": errs, "loss_rel": loss_rel,
+                         "bar": LM_REL.get(arch, LM_REL_DEFAULT), **res}
+            moe = res.get("moe_collectives")
+            moe_text = "" if moe is None else (
+                f"; its MoE layers' collectives (buffer "
+                f"{res['moe_buffer']} elements): prefill "
+                f"{moe['prefill']['total'] / 1e6:.4f} MB "
+                f"{moe['prefill']['op_counts']}, train step (forward and "
+                f"recompute) {moe['train']['total'] / 1e6:.4f} MB "
+                f"{moe['train']['op_counts']}, largest result "
+                f"{max(moe['train']['largest'].values())} elements")
+            print(f"phase 14: (d) rank {r}: {arch} reduced on a "
+                  f"{LM_MESH_REDUCED_SHAPE[0]}x{LM_MESH_REDUCED_SHAPE[1]} "
+                  f"mesh with FSDP: logits worst rel {max(errs):.3e} (bar "
+                  f"{rec[arch]['bar']}), per step "
+                  f"{[round(e, 5) for e in errs]}; loss rel {loss_rel:.2e} "
+                  f"(limit {LM_MESH_LOSS_REL}); prefill "
+                  f"{res['ms']['prefill']:.1f} ms, {LM_MESH_SERVE['decode']} "
+                  f"decode steps {res['ms']['decode']:.1f} ms, train step "
+                  f"{res['ms']['train']:.1f} ms (single card "
+                  f"{one['ms']['prefill']:.1f} / {one['ms']['decode']:.1f} / "
+                  f"{one['ms']['train']:.1f}){moe_text}; {card}")
+        reduced_rank.append(rec)
+    for r, pr in enumerate(fsdp_rank):
+        check(pr["loss_rel"] <= LM_MESH_LOSS_REL,
+              f"phase 14: (b) rank {r}: FSDP loss off the single card's "
+              f"({pr['loss_rel']:.3e}, limit {LM_MESH_LOSS_REL})")
+        check(pr["memory_ratio"] <= LM_MESH_MEMORY,
+              f"phase 14: (b) rank {r}: FSDP peak {pr['memory_ratio']:.3f} "
+              f"of the single card's (limit {LM_MESH_MEMORY})")
+    for r, rec in enumerate(reduced_rank):
+        for arch, pr in rec.items():
+            check(all(math.isfinite(e) for e in pr["logit_rel"])
+                  and max(pr["logit_rel"]) <= pr["bar"],
+                  f"phase 14: (d) rank {r}: {arch}: logits off the single "
+                  f"card's ({max(pr['logit_rel']):.3e}, bar {pr['bar']})")
+            check(pr["loss_rel"] <= LM_MESH_LOSS_REL,
+                  f"phase 14: (d) rank {r}: {arch}: loss off the single "
+                  f"card's ({pr['loss_rel']:.3e}, limit {LM_MESH_LOSS_REL})")
     for r, pr in enumerate(per_rank):
         errs = pr["logit_rel"]
         check(all(math.isfinite(e) for e in errs) and max(errs) <= bar,
@@ -4813,7 +5010,8 @@ def phase_lm_mesh(torch, np, dev, card: str) -> dict:
               f"{ca['scan_periods']}): per device {ca['flops_per_device']:.4g}"
               f" FLOP, {ca['bytes_per_device']:.4g} B accessed, "
               f"{ca['collective_bytes_per_device']:.4g} B of collectives "
-              f"{rec['collectives']['op_counts']}, peak "
+              f"{rec['collectives']['op_counts']} (B by kind: "
+              f"{ {k: v for k, v in rec['collectives'].items() if k not in ('total', 'op_counts') and v} }), peak "
               f"{mem['peak_bytes_est'] / 2**30:.1f} GiB; H100 roofline "
               f"compute {t['compute_s']:.4g} s, memory {t['memory_s']:.4g} "
               f"s, collective {t['collective_s']:.4g} s, dominant "
@@ -4821,14 +5019,18 @@ def phase_lm_mesh(torch, np, dev, card: str) -> dict:
               f"(the H100 model's peaks, not a card run); "
               f"{rec['compile_s']:.1f} s on the host")
     print(f"phase 14: single card {single_s:.1f} s, mesh {mesh_s:.1f} s, "
-          f"in all {time.perf_counter() - t0:.1f} s")
+          f"(d) {reduced_s:.1f} s, in all {time.perf_counter() - t0:.1f} s")
     strip = lambda d: {k: v for k, v in d.items()
                        if k not in ("prefill", "decode")}
     return {"card": card, "mesh": list(LM_MESH_SHAPE), "serve": LM_MESH_SERVE,
             "control_rel": control, "logit_bar": bar,
-            "train": LM_MESH_TRAIN, "single_card": {"serve": strip(one_s),
-                                                    "train": one_t},
-            "per_rank": per_rank, "dryrun": cells}
+            "train": LM_MESH_TRAIN, "single_card": {
+                "serve": strip(one_s), "train": one_t,
+                "reduced": {a: strip(v) for a, v in one_d.items()}},
+            "per_rank": per_rank, "fsdp_mesh": list(LM_MESH_FSDP_SHAPE),
+            "fsdp_per_rank": fsdp_rank,
+            "reduced_mesh": list(LM_MESH_REDUCED_SHAPE),
+            "reduced_per_rank": reduced_rank, "dryrun": cells}
 
 
 def run(args) -> int:

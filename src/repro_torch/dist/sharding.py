@@ -29,6 +29,10 @@ over a fake process group.  :func:`placements` turns a spec into DTensor
 placements; :func:`distribute_params` and :func:`distribute_cache` place
 a tree of full tensors on a ``DeviceMesh`` as the plan says (each rank
 keeps its own slice: every rank must hold the same full values).
+:func:`fsdp_gathered` is the other half of FSDP: the models call it on
+each period's leaves (and the embedding, norms and head) before their
+products, so a weight sharded over ``data`` is gathered whole over that
+axis first and every product runs on the layout it has without FSDP.
 """
 
 from __future__ import annotations
@@ -288,6 +292,41 @@ def distribute_params(params, plan: ShardingPlan):
         lambda path, t: distribute(
             t, plan.mesh, plan.param_spec(path, tuple(t.shape), t.dtype)),
         params)
+
+
+def fsdp_gathered(tree):
+    """``tree`` (placed parameters) with every ``data`` placement of its
+    leaves gathered to ``Replicate()`` and every other placement kept:
+    ZeRO-3's gather of a weight before it is used.
+
+    Without it DTensor plans each product on a weight FSDP split over
+    ``data`` itself (partial products over ``data`` summed in bf16, or
+    activations resharded around the split), which moves the answer and
+    its gradients.  The gather is a ``DTensor.redistribute``, so its
+    gradient comes back in the leaf's own layout: a partial sum over
+    ``data`` reduce-scattered into the shard.  Called inside a rematerialized
+    period, the gathered weights are dropped after the forward and gathered
+    again in the backward.  The identity with no active mesh and on a tree
+    with no leaf sharded over ``data`` (``fsdp=False``)."""
+    from repro_torch.dist.policy import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None or "data" not in axis_sizes(mesh):
+        return tree
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def gather(_, t):
+        if not isinstance(t, DTensor) or "data" not in (
+                t.device_mesh.mesh_dim_names or ()):
+            return t
+        i = t.device_mesh.mesh_dim_names.index("data")
+        if not t.placements[i].is_shard():
+            return t
+        place = list(t.placements)
+        place[i] = Replicate()
+        return t.redistribute(t.device_mesh, place)
+
+    return map_with_paths(gather, tree)
 
 
 def distribute_cache(cache, plan: ShardingPlan, dp: Tuple[str, ...]):

@@ -37,9 +37,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.dist.policy import (active_mesh, constrain, constrain_ranked,
-                                     constrain_to, select_spec,
-                                     sharding_policy)
+from repro_torch.dist.policy import (active_mesh, constrain, constrain_to,
+                                     ranked_spec, sharding_policy)
 
 Params = Dict[str, torch.Tensor]
 Device = Union[None, str, torch.device]
@@ -296,23 +295,30 @@ def vocab_parallel_embedding(embed, tokens):
                               stride=torch.empty(shape, device="meta").stride())
 
 
-def row_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w`` where ``a``'s last dim may be sharded: a row-parallel
-    weight (``wo``, ``down``) or a product after a sharded carry (the SSM
-    readouts and recurrences).
+def row_product(a: torch.Tensor, w: torch.Tensor,
+                equation: Optional[str] = None) -> torch.Tensor:
+    """``a @ w`` (or ``torch.einsum(equation, a, w)`` when an equation
+    contracting ``a``'s last dim is given: the MoE's expert ``down``)
+    where ``a``'s last dim may be sharded: a row-parallel weight (``wo``,
+    ``down``) or a product after a sharded carry (the SSM readouts and
+    recurrences).
 
     Under a mesh where the contraction is sharded over ranks, each rank's
     partial product is kept in f32 and the partials are summed across the
     ranks in f32 before the one rounding to ``a``'s dtype, as the single
     card's product accumulates in f32 and rounds once.  (Partials rounded
     to bf16 on each rank and rounded again after their sum drift by ~2% of
-    max|logits| over qwen3-8b's 36 layers.)  Elsewhere it is ``a @ w``."""
+    max|logits| over qwen3-8b's 36 layers.)  Elsewhere it is the plain
+    product."""
+    def product(x, y):
+        return x @ y if equation is None else torch.einsum(equation, x, y)
+
     if not _is_dtensor(a) or not any(p.is_shard(a.ndim - 1)
                                      for p in a.placements):
-        return a @ w
+        return product(a, w)
     from torch.distributed.tensor import Replicate
 
-    y = a.float() @ w.float()
+    y = product(a.float(), w.float())
     return y.redistribute(y.device_mesh, [
         Replicate() if p.is_partial() else p
         for p in y.placements]).to(a.dtype)
@@ -743,54 +749,6 @@ EXPERT_BUF_SPECS = (
 )
 
 
-def _combine_on_token_shards(tok, weighted, n: int):
-    """Under a mesh: each token's weighted expert outputs summed into its
-    row, on the rank holding the token.  The routed rows follow their
-    tokens (row ``j`` is token ``j // k``'s), so with both laid out over
-    the same batch axes each rank sums its own rows into its own tokens
-    (the card's torch plans ``index_add`` over such shards wrongly)."""
-    mesh = active_mesh()
-    d = weighted.shape[1]
-    entry = select_spec(mesh, (n, d), _TOKEN_SPECS)
-    entry = None if entry is None else entry[0]
-    spec = (entry,) if entry is not None else (None,)
-    if entry is not None and weighted.shape[0] % _entry_size(mesh, entry):
-        entry, spec = None, (None,)
-    per = n // _entry_size(mesh, entry)
-    lo = per * _axes_index(mesh, entry)
-
-    def combine(t, w):
-        out = torch.zeros((per, d), dtype=w.dtype, device=w.device)
-        return out.index_add(0, t - lo, w)
-
-    return _head_local(combine, (tok, weighted), (spec, spec + (None,)),
-                       spec + (None,), (n, d))
-
-
-def _entry_size(mesh, entry) -> int:
-    """The number of shards a spec entry makes (1 for None)."""
-    from repro_torch.dist.topology import axis_sizes
-
-    sizes = axis_sizes(mesh)
-    axes = () if entry is None else (
-        entry if isinstance(entry, tuple) else (entry,))
-    return math.prod(sizes[a] for a in axes)
-
-
-def _axes_index(mesh, entry) -> int:
-    """This rank's position along the mesh axes of a spec entry (major to
-    minor), 0 for None."""
-    if entry is None:
-        return 0
-    names = list(mesh.mesh_dim_names)
-    coord = mesh.get_coordinate()
-    idx = 0
-    for a in (entry if isinstance(entry, tuple) else (entry,)):
-        i = names.index(a)
-        idx = idx * mesh.size(i) + coord[i]
-    return idx
-
-
 def moe_capacity(n_tokens: int, moe: MoEConfig) -> int:
     """Slots per expert, from shapes on the host (never from the data)."""
     cap = int(-(-n_tokens * moe.top_k // moe.n_experts) * moe.capacity_factor)
@@ -808,59 +766,246 @@ def moe_layer(p: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
     token's k outputs.  No value is read back to the host, so the layer
     can be captured in a CUDA graph.  On the card ``index_put_`` and
     ``index_add_`` use atomics, so bits may differ from run to run.
+
+    Under a mesh the tokens stay on their shards and the buffer is never
+    whole on a rank (:func:`_moe_on_token_shards`).
     """
     b, s, d = x.shape
-    n = b * s
-    e, k = moe.n_experts, moe.top_k
-    xt = constrain(x.reshape(n, d), _TOKEN_SPECS)
-    logits = xt.float() @ p["router"].float()
-    gates, eids = torch.topk(logits, k, dim=-1)             # (N, k)
-    gates = torch.softmax(gates, dim=-1)
-
-    cap = moe_capacity(n, moe)
-    flat_e = eids.reshape(-1)                               # (N*k,)
-    # position of each routed token inside its expert's buffer
-    onehot = (flat_e[:, None] == torch.arange(e, device=x.device)).long()
-    pos_all = onehot.cumsum(dim=0) - 1                      # (N*k, E)
-    pos = pos_all.gather(1, flat_e[:, None])[:, 0]
-    tok = torch.arange(n * k, device=x.device) // k
-
-    keep = pos < cap                                        # dropped overflow
-    safe_pos = torch.where(keep, pos, cap - 1)
-    routed = constrain(xt[tok], _TOKEN_SPECS)
-    val = constrain(torch.where(keep[:, None], routed, 0), _TOKEN_SPECS)
-    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((flat_e, safe_pos), val, accumulate=True)
-    # expert parallelism: the dispatch buffer's spec decides the
-    # token->expert exchange (ranked by the cost model)
-    buf = constrain_ranked(buf, EXPERT_BUF_SPECS)
-
-    h = silu(torch.einsum("ecd,edw->ecw", buf, p["gate"]))
-    h = h * torch.einsum("ecd,edw->ecw", buf, p["up"])
-    out_buf = torch.einsum("ecw,ewd->ecd", h, p["down"])    # (E, cap, D)
-    out_buf = constrain_ranked(out_buf, EXPERT_BUF_SPECS)
-
-    if _is_dtensor(out_buf):
-        # the card's torch has no rule to gather an expert-sharded buffer's
-        # rows by indices sharded over two mesh dims: the buffer goes whole
-        # to every rank here and the indices follow the tokens
-        from torch.distributed.tensor import Replicate
-
-        out_buf = out_buf.redistribute(
-            out_buf.device_mesh, [Replicate()] * out_buf.device_mesh.ndim)
-        flat_e, safe_pos = (constrain(t, [(("pod", "data"),), ("data",)])
-                            for t in (flat_e, safe_pos))
-    gathered = constrain(out_buf[flat_e, safe_pos], _TOKEN_SPECS)
-    gathered = torch.where(keep[:, None], gathered, 0)
-    weighted = constrain(gathered * gates.reshape(-1)[:, None].to(x.dtype),
-                         _TOKEN_SPECS)
-    if _is_dtensor(weighted):
-        out = _combine_on_token_shards(tok, weighted, n)
-    else:
-        out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
-        out = out.index_add(0, tok, weighted)
-    out = constrain(out, _TOKEN_SPECS)
-
+    xt = constrain(x.reshape(b * s, d), _TOKEN_SPECS)
+    out = (_moe_on_token_shards(p, xt, moe) if _is_dtensor(xt)
+           else _moe_local(p, xt, moe))
     if "shared" in p:
         out = out + mlp(p["shared"], xt)
     return out.reshape(b, s, d)
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """(gates (N, k), expert ids (N, k)) of tokens ``x``: the top k of the
+    router's f32 logits, softmaxed."""
+    logits = x.float() @ router.float()
+    gates, eids = torch.topk(logits, k, dim=-1)
+    return torch.softmax(gates, dim=-1), eids
+
+
+def _slots(flat_e: torch.Tensor, e: int):
+    """Each routed copy's rank among the copies routed to its expert (a
+    cumulative sum of one-hots), and the copies routed to each expert."""
+    onehot = (flat_e[:, None] == torch.arange(e, device=flat_e.device)).long()
+    pos_all = onehot.cumsum(dim=0) - 1                      # (N*k, E)
+    return pos_all.gather(1, flat_e[:, None])[:, 0], pos_all[-1] + 1
+
+
+def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over the dispatch buffer (E, cap, D); a sharded
+    contraction of ``down`` sums its partials in f32 (``row_product``)."""
+    h = silu(torch.einsum("ecd,edw->ecw", buf, p["gate"]))
+    h = h * torch.einsum("ecd,edw->ecw", buf, p["up"])
+    return row_product(h, p["down"], "ecw,ewd->ecd")        # (E, cap, D)
+
+
+def _moe_local(p: Params, xt: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    n, d = xt.shape
+    e, k = moe.n_experts, moe.top_k
+    gates, eids = _route(xt, p["router"], k)
+    cap = moe_capacity(n, moe)
+    flat_e = eids.reshape(-1)                               # (N*k,)
+    pos, _ = _slots(flat_e, e)
+    tok = torch.arange(n * k, device=xt.device) // k
+
+    keep = pos < cap                                        # dropped overflow
+    safe_pos = torch.where(keep, pos, cap - 1)
+    val = torch.where(keep[:, None], xt[tok], 0)
+    buf = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((flat_e, safe_pos), val, accumulate=True)
+    out_buf = _experts(p, buf)
+    gathered = torch.where(keep[:, None], out_buf[flat_e, safe_pos], 0)
+    weighted = gathered * gates.reshape(-1)[:, None].to(xt.dtype)
+    out = torch.zeros((n, d), dtype=xt.dtype, device=xt.device)
+    return out.index_add(0, tok, weighted)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum of every rank's ``x`` over ``group``, each rank keeping its
+    chunk of ``dim``; the gradient is the all-gather of the chunks'."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.dim, ctx.group = dim, group
+        return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+            x.contiguous(), "sum", dim, group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            grad.contiguous(), ctx.dim, ctx.group)), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` over ``group``, concatenated along ``dim``.  Its
+    gradient is the sum over the group of each rank's (a reduce-scatter)
+    when the ranks used the whole for tokens of their own (``partial``),
+    else this rank's chunk (``index``) of the gradient they share."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, index, partial):
+        from torch.distributed import _functional_collectives as funcol
+
+        ctx.dim, ctx.group, ctx.index, ctx.partial = dim, group, index, partial
+        ctx.size = x.shape[dim]
+        return funcol.wait_tensor(funcol.all_gather_tensor(
+            x.contiguous(), dim, group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+
+        if ctx.partial:
+            out = funcol.wait_tensor(funcol.reduce_scatter_tensor(
+                grad.contiguous(), "sum", ctx.dim, ctx.group))
+        else:
+            out = grad.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+        return out, None, None, None, None
+
+
+def token_shard_slots(flat_e: torch.Tensor, e: int, mesh, dims,
+                      index: int) -> torch.Tensor:
+    """The slot of each routed copy of token shard ``index`` (over mesh
+    dims ``dims``, major to minor): its rank among the copies routed to
+    its expert in the reference's global order, i.e. the local cumulative
+    sum plus the copies the earlier shards route there (the per-expert
+    counts of every shard gathered, the earlier ones summed)."""
+    pos, counts = _slots(flat_e, e)
+    if not dims:
+        return pos
+    from torch.distributed import _functional_collectives as funcol
+
+    every = counts[None]
+    for i in reversed(dims):                 # minor first: rows major-minor
+        every = funcol.wait_tensor(funcol.all_gather_tensor(
+            every, 0, mesh.get_group(i)))
+    return pos + every[:index].sum(0)[flat_e]
+
+
+def _moe_on_token_shards(p: Params, xt, moe: MoEConfig):
+    """:func:`moe_layer` under a mesh: each rank routes its own tokens and
+    the (E, cap, D) buffer is never whole on a rank.
+
+    * **Slots.**  A copy's slot is its rank among every copy routed to
+      its expert in the reference's global order: the local cumulative sum
+      plus the copies of the earlier token shards (their per-expert counts
+      gathered, E integers a shard), so capacity drops exactly the tokens
+      the reference drops, and each shard's slots are one consecutive
+      range per expert.
+    * **Dispatch.**  The buffer's layout is the cost model's
+      (``EXPERT_BUF_SPECS``, as ``constrain_ranked`` picks it).  Each rank
+      scatters its kept copies into a local buffer of the part its model
+      group holds (its experts where the layout splits them over
+      ``model``, else its slice of D) with plain tensors; the slots of the
+      token shards are disjoint, so their sum over the batch axes is exact:
+      a reduce-scatter onto the capacity's shards (an all-reduce over a
+      batch axis the layout does not split), then, for a D slice, an
+      all-gather of D over ``model``.  Its gradient is the transpose.
+    * **Combine.**  The inverse: each rank gathers the capacity of its part
+      over the batch axes, reads its own copies' rows, and the rows are
+      made whole over ``model`` (a sum of disjoint experts, or the D
+      slices gathered); the gate-weighted sum into each token runs on the
+      token's rank.
+    * Nothing indexes a DTensor by a DTensor, so no DTensor rule is needed
+      for either direction (the card's torch has none for an index
+      sharded over two mesh dims).  Each collective is written out with
+      its transpose, and each local view of a DTensor names the
+      placements of its gradient.
+    """
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.dist.sharding import placements
+
+    mesh = xt.device_mesh
+    n, d = xt.shape
+    e, k = moe.n_experts, moe.top_k
+    cap = moe_capacity(n, moe)
+    coord = mesh.get_coordinate()
+    names = list(mesh.mesh_dim_names)
+    tok_place = tuple(xt.placements)
+    if not all(pl.is_replicate() or pl.is_shard(0) for pl in tok_place):
+        raise ValueError(f"MoE tokens laid out as {tok_place}: each rank "
+                         "must hold whole tokens")
+    tok_dims = [i for i, pl in enumerate(tok_place) if pl.is_shard(0)]
+    spec = ranked_spec(mesh, (e, cap, d), EXPERT_BUF_SPECS,
+                       xt.element_size()) or (None, None, None)
+    buf_place = placements(mesh, spec)
+    cap_dims = [i for i, pl in enumerate(buf_place) if pl.is_shard(1)]
+    m = names.index("model") if "model" in names else None
+    if m is not None and mesh.size(m) == 1:
+        m = None
+    by_expert = m is None or buf_place[m].is_shard(0)
+    msz, mi = (1, 0) if m is None else (mesh.size(m), coord[m])
+    if not by_expert and d % msz:
+        raise ValueError(f"d_model {d} does not split over {msz} model ranks")
+    e_lo, e_n = (mi * (e // msz), e // msz) if by_expert else (0, e)
+    d_lo, d_n = (0, d) if by_expert else (mi * (d // msz), d // msz)
+    shard = 0
+    for i in tok_dims:
+        shard = shard * mesh.size(i) + coord[i]
+
+    # routing: the same on every rank holding the tokens
+    router = p["router"]
+    if _is_dtensor(router):
+        router = router.to_local(
+            grad_placements=_grad_placements(router.placements, tok_place))
+    gates, eids = _route(xt.to_local(grad_placements=tok_place), router, k)
+    flat_e = eids.reshape(-1)                               # (N_local*k,)
+    pos = token_shard_slots(flat_e, e, mesh, tok_dims, shard)
+    keep = pos < cap                                        # dropped overflow
+    safe_pos = torch.where(keep, pos, cap - 1)
+    tok = torch.arange(flat_e.shape[0], device=flat_e.device) // k
+    mine = keep & (flat_e >= e_lo) & (flat_e < e_lo + e_n)
+    slot_e = (flat_e - e_lo).clamp(0, e_n - 1)
+
+    # dispatch: this rank's part, summed over the token shards
+    xd = xt.to_local(grad_placements=[
+        Partial() if i == m or (i in cap_dims and i not in tok_dims) else pl
+        for i, pl in enumerate(tok_place)])
+    val = torch.where(mine[:, None], xd[:, d_lo:d_lo + d_n][tok], 0)
+    buf = torch.zeros((e_n, cap, d_n), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((slot_e, safe_pos), val, accumulate=True)
+    for i in range(mesh.ndim):                              # major to minor
+        if i == m:
+            continue
+        group = mesh.get_group(i)
+        if i in tok_dims and i in cap_dims:
+            buf = _ReduceScatter.apply(buf, 1, group)
+        elif i in tok_dims:
+            buf = _SumOverGroup.apply(buf, group)
+        elif i in cap_dims:
+            buf = buf.chunk(mesh.size(i), 1)[coord[i]]
+    if not by_expert:
+        buf = _AllGather.apply(buf, 2, mesh.get_group(m), mi, False)
+    shape = (e, cap, d)
+    buf = DTensor.from_local(buf.contiguous(), mesh, buf_place,
+                             run_check=False, shape=torch.Size(shape),
+                             stride=torch.empty(shape, device="meta").stride())
+
+    out_buf = constrain_to(_experts(p, buf), spec)
+
+    # combine: this rank's part, whole over the capacity, read by its copies
+    part = out_buf.to_local(grad_placements=[
+        Partial() if (i in tok_dims and not pl.is_shard()) or (
+            i == m and not by_expert) else pl
+        for i, pl in enumerate(buf_place)])[..., d_lo:d_lo + d_n]
+    for i in reversed(cap_dims):                            # minor first
+        part = _AllGather.apply(part, 1, mesh.get_group(i), coord[i],
+                                i in tok_dims)
+    rows = torch.where(mine[:, None], part[slot_e, safe_pos], 0)
+    if m is not None:
+        rows = (_SumOverGroup.apply(rows, mesh.get_group(m)) if by_expert
+                else _AllGather.apply(rows, 1, mesh.get_group(m), mi, False))
+    weighted = rows * gates.reshape(-1)[:, None].to(xt.dtype)
+    out = torch.zeros((xd.shape[0], d), dtype=xt.dtype, device=xt.device)
+    out = out.index_add(0, tok, weighted)
+    return DTensor.from_local(out, mesh, tok_place, run_check=False,
+                              shape=torch.Size((n, d)), stride=(d, 1))

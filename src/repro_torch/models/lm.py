@@ -17,6 +17,9 @@ The parameter tree keeps the reference's layout: ``blocks`` (and
 ``jax.vmap(init_period)`` makes it, and each period is a slice of it
 (a view).  So weights cross between the packages leaf for leaf
 (:mod:`repro_torch.models.convert`).  Caches are laid out the same way.
+Under a mesh with FSDP, each block's leaves, the embedding, the norms
+and the head are gathered over ``data`` where they are used
+(``dist.sharding.fsdp_gathered``), one period at a time.
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist.policy import constrain
+from repro_torch.dist.sharding import fsdp_gathered
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.train.tree import tree_map
@@ -258,20 +262,20 @@ def encode(params: Params, cfg: ArchConfig,
     x = memory_embeds
     positions = torch.arange(x.shape[1], device=x.device)
     for blk in unstack_periods(params["encoder"], cfg.encoder_layers):
+        blk = fsdp_gathered(blk)
         h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
         out, _ = L.attention(blk["mix"], h, enc_cfg, positions, causal=False)
         x = _residual(x, L.row_product(out, blk["mix"]["wo"]))
         h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
         x = _residual(x, L.mlp(blk["ffn"], h))
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return L.rms_norm(x, fsdp_gathered(params["enc_norm"]), cfg.norm_eps)
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    if L._is_dtensor(params["embed"]) and any(
-            p.is_shard(0) for p in params["embed"].placements):
-        return L.vocab_parallel_embedding(params["embed"], tokens).to(
-            torch.bfloat16)
-    return params["embed"][tokens].to(torch.bfloat16)
+    embed = fsdp_gathered(params["embed"])
+    if L._is_dtensor(embed):
+        return L.vocab_parallel_embedding(embed, tokens).to(torch.bfloat16)
+    return embed[tokens].to(torch.bfloat16)
 
 
 def forward_hidden(
@@ -293,10 +297,11 @@ def forward_hidden(
         memory = encode(params, cfg, memory)
 
     for blk in params.get("head_blocks", []):
-        x, _ = _apply_block(_dense(cfg), "attn+mlp", blk, x, positions,
-                            memory, None, None)
+        x, _ = _apply_block(_dense(cfg), "attn+mlp", fsdp_gathered(blk), x,
+                            positions, memory, None, None)
 
     def body(h, period, memory):
+        period = fsdp_gathered(period)
         for i, kind in enumerate(cfg.pattern):
             h, _ = _apply_block(cfg, kind, period[f"b{i}"], h, positions,
                                 memory, None, None)
@@ -306,11 +311,15 @@ def forward_hidden(
     for period in unstack_periods(params["blocks"], n_body_periods(cfg)):
         x = L.remat(body, x, period, memory) if remat else body(
             x, period, memory)
-    return L.whole_sequence(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
+    return L.whole_sequence(L.rms_norm(x, fsdp_gathered(params["final_norm"]),
+                                       cfg.norm_eps))
 
 
 def head(params: Params, cfg: ArchConfig) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The output projection (D, vocab), gathered over ``data`` under
+    FSDP."""
+    return fsdp_gathered(params["embed"].T if cfg.tie_embeddings
+                         else params["lm_head"])
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -423,7 +432,7 @@ def fill_cross_cache(params: Params, cfg: ArchConfig, cache: Params,
         memory = encode(params, cfg, memory)
     blocks = tree_map(lambda t: t.clone(), cache["blocks"])
     for pi in range(n_body_periods(cfg)):
-        period = period_slice(params["blocks"], pi)
+        period = fsdp_gathered(period_slice(params["blocks"], pi))
         for i, kind in enumerate(cfg.pattern):
             mixer = _parse(kind)[0]
             if mixer not in ("xattn", "attnx"):
@@ -452,14 +461,14 @@ def decode_step(
     if "head_blocks" in params:
         hb: List[Params] = []
         for blk, c in zip(params["head_blocks"], cache["head_blocks"]):
-            x, nc = _apply_block(_dense(cfg), "attn+mlp", blk, x, positions,
-                                 None, c, pos)
+            x, nc = _apply_block(_dense(cfg), "attn+mlp", fsdp_gathered(blk),
+                                 x, positions, None, c, pos)
             hb.append(nc)
         new_cache["head_blocks"] = hb
 
     periods = []
     for pi in range(n_body_periods(cfg)):
-        period = period_slice(params["blocks"], pi)
+        period = fsdp_gathered(period_slice(params["blocks"], pi))
         pcache = period_slice(cache["blocks"], pi)
         ncs = {}
         for i, kind in enumerate(cfg.pattern):
@@ -468,6 +477,6 @@ def decode_step(
                                            pos)
         periods.append(ncs)
     new_cache["blocks"] = tree_map(lambda *ts: torch.stack(ts), *periods)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, fsdp_gathered(params["final_norm"]), cfg.norm_eps)
     logits = (x[:, 0] @ head(params, cfg).to(x.dtype)).float()
     return logits, new_cache

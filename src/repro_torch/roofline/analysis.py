@@ -56,6 +56,14 @@ def _nbytes(out) -> int:
     return 0
 
 
+def _numel(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel()
+    if isinstance(out, (list, tuple)):
+        return max((_numel(o) for o in out), default=0)
+    return 0
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Counts, while active, the collectives and the local FLOPs of the
     ranks' ops.
@@ -63,7 +71,8 @@ class CollectiveCounter(TorchDispatchMode):
     An op on DTensors is let through (``NotImplemented``) so that DTensor
     turns it into local ops and collectives first; those this mode sees
     and counts.  ``bytes[key]`` is the per-device result bytes of each
-    collective kind, ``calls[key]`` how many were issued, ``flops`` the
+    collective kind, ``calls[key]`` how many were issued, ``largest[key]``
+    the elements of its largest single result, ``flops`` the
     FLOPs of the local ops (matrix products and attention, as
     ``torch.utils.flop_counter`` counts them).
     """
@@ -80,6 +89,7 @@ class CollectiveCounter(TorchDispatchMode):
     def reset(self) -> None:
         self.bytes: Dict[str, float] = {c: 0.0 for c in _COLLECTIVES}
         self.calls: Dict[str, int] = {c: 0 for c in _COLLECTIVES}
+        self.largest: Dict[str, int] = {c: 0 for c in _COLLECTIVES}
         self.flops = 0
         self.bytes_accessed = 0
         self.ops = 0
@@ -95,6 +105,7 @@ class CollectiveCounter(TorchDispatchMode):
             if key is not None:
                 self.bytes[key] += _nbytes(out)
                 self.calls[key] += 1
+                self.largest[key] = max(self.largest[key], _numel(out))
         elif not func.is_view:
             self.ops += 1
             formula = self._flop_registry.get(packet)

@@ -26,8 +26,9 @@ def _whole(t):
 
 
 def lm_mesh_rank(rank, world, shape, cases):
-    """``cases``: {arch: (serve weights, serve tokens, train weights, train
-    tokens, fsdp)}, weights as numpy trees.  Returns {arch: {"prefill",
+    """``cases``: {label: (serve weights, serve tokens, train weights, train
+    tokens, fsdp)}, weights as numpy trees; a label is an arch, or an arch
+    and a tag after ``@`` (``qwen3-8b@fsdp``).  Returns {label: {"prefill",
     "decode": [...], "loss", "grads": [(path, grad)], "train_loss",
     "grad_norm", the layout and update checks, "seconds"}}."""
     import time
@@ -46,10 +47,10 @@ def lm_mesh_rank(rank, world, shape, cases):
 
     mesh = make_production_mesh(data=shape[0], model=shape[1], device="cpu")
     out = {}
-    for arch, (serve_np, serve_tok, train_np, train_tok, fsdp) in \
+    for label, (serve_np, serve_tok, train_np, train_tok, fsdp) in \
             cases.items():
         t0 = time.perf_counter()
-        cfg = reduced(get_config(arch))
+        cfg = reduced(get_config(label.split("@")[0]))
         plan = ShardingPlan(mesh, fsdp=fsdp)
 
         def placed(tree):
@@ -96,7 +97,7 @@ def lm_mesh_rank(rank, world, shape, cases):
         res["moved"] = any(not torch.equal(a, b.to_local())
                            for a, b in zip(before, leaves(new)))
         res["seconds"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
-        out[arch] = res
+        out[label] = res
     return out
 
 
@@ -123,4 +124,84 @@ def constrain_rank(rank, world):
         b=(str(b.placements), b.to_local().numpy()),
         c=(str(c.placements), c.to_local().numpy(), c.full_tensor().numpy()),
         unfit=none is x)
+    return out
+
+
+
+def moe_mesh_rank(rank, world, shape, cases, step_arch):
+    """``cases``: {label: (MoEConfig, layer weights as numpy, input x
+    (B, S, D) as numpy)}.  On a ``(data, model)`` mesh, laid out by
+    ``ShardingPlan`` with the batch over ``data``: each case's
+    ``moe_layer`` output (whole), the slots of this rank's token shard
+    (``layers.token_shard_slots``) with its shard index, and the
+    collectives of the layer's forward and backward (calls, bytes and the
+    largest result's elements per kind, ``CollectiveCounter``).  Then one
+    gradient step of the reduced ``step_arch`` under FSDP with a counter
+    around each call of ``moe_layer`` (its forward and its recomputation
+    in the backward): under "step", those collectives' largest result and
+    the buffer's elements."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.dist.policy import sharding_policy
+    from repro_torch.dist.sharding import (ShardingPlan, distribute,
+                                           distribute_params)
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import layers, lm
+    from repro_torch.models.convert import lm_params_from_numpy
+    from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.train.tree import leaves
+
+    mesh = make_production_mesh(data=shape[0], model=shape[1], device="cpu")
+    shard = mesh.get_coordinate()[0]
+    out = {}
+    for label, (moe, weights, x_np) in cases.items():
+        p = distribute_params({"ffn": lm_params_from_numpy(
+            weights, device="cpu")}, ShardingPlan(mesh))["ffn"]
+        x = distribute(torch.as_tensor(x_np).bfloat16(), mesh,
+                       ("data", None, None))
+        for t in leaves(p):
+            t.requires_grad_(True)
+        counter = CollectiveCounter()
+        with sharding_policy(mesh), implicit_replication():
+            with counter:
+                y = layers.moe_layer(p, x, moe)
+                y.float().sum().backward()
+            local = x.to_local().reshape(-1, x.shape[-1])
+            _, eids = layers._route(local, p["router"].full_tensor(),
+                                    moe.top_k)
+            slots = layers.token_shard_slots(
+                eids.reshape(-1), moe.n_experts, mesh, [0], shard)
+        out[label] = {
+            "out": _whole(y), "slots": slots.numpy(), "shard": shard,
+            "capacity": layers.moe_capacity(x.shape[0] * x.shape[1], moe),
+            "calls": dict(counter.calls), "bytes": dict(counter.bytes),
+            "largest": dict(counter.largest),
+            "grads": [_whole(t.grad) for t in leaves(p)]}
+
+    cfg = reduced(get_config(step_arch))
+    counter = CollectiveCounter()
+    inner = layers.moe_layer
+
+    def counted(p, x, moe):
+        with counter:
+            return inner(p, x, moe)
+
+    params = distribute_params(
+        lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu"),
+        ShardingPlan(mesh, fsdp=True))
+    tokens = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(1))
+    layers.moe_layer = counted
+    try:
+        steps.build_grad_step(cfg, mesh=mesh)(params, tokens)
+    finally:
+        layers.moe_layer = inner
+    n = tokens.numel()
+    out["step"] = {"calls": dict(counter.calls),
+                   "largest": dict(counter.largest),
+                   "buffer": cfg.moe.n_experts * cfg.d_model
+                   * layers.moe_capacity(n, cfg.moe)}
     return out

@@ -17,7 +17,8 @@ and the steps' ``mesh=``) against the reference.
   gradient and one train step of the reduced qwen3-8b, deepseek-v2-lite
   (MLA + MoE), jamba (Mamba + MoE) and xlstm, from the reference's
   weights, with the parameters split over ``model`` and the batch over
-  ``data`` (FSDP off: its specs are held above and it runs in the dry
+  ``data`` (FSDP off here: its specs are held above, its steps against
+  FSDP off in ``tests/test_torch_mesh_fsdp.py``, and it runs in the dry
   run, ``tests/test_torch_roofline.py``).  Their whole outputs are held against the reference's
   unsharded steps and the port's single-card ones at the bars of
   ``tests/test_torch_lm.py`` (logits) and ``tests/_lm_parity.py`` (loss,

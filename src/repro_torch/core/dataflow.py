@@ -1,7 +1,9 @@
-"""Launch schedules for the block-skipping kernels.
+"""The hierarchical dataflow (paper Section V): the DRAM -> Dense Buffer
+split of the feature dimension, and the launch schedules of the
+block-skipping kernels.
 
-A numpy copy of the kernel-grid half of ``repro.core.dataflow``.  The
-outputs equal the reference's exactly; ``plan_kernel_grid`` builds its
+A numpy copy of ``repro.core.dataflow``.  The outputs equal the
+reference's exactly; ``plan_kernel_grid`` builds its
 pair list with array operations instead of a Python loop over every
 (row block, k-tile) cell, so it stays fast at hundreds of millions of
 cells.
@@ -14,6 +16,48 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.sparse_formats import PAD_COL, TiledELL, _ceil_div
+
+
+@dataclasses.dataclass(frozen=True)
+class BufferPlan:
+    """DRAM -> Dense Buffer plan for the simulator: the feature dimension
+    cut into f-tiles that fit the buffer, loaded ``m`` deep."""
+
+    f_tile: int          # feature columns per pass (fits Dense Buffer width)
+    n_f_tiles: int
+    m: int               # multi-buffer factor (m=2 double buffer, paper m=6)
+    elem_bytes: int
+
+    @property
+    def overlapped(self) -> bool:
+        return self.m >= 2
+
+
+def plan_buffer(
+    feature_dim: int,
+    dense_buffer_bytes: int,
+    tile_rows: int,
+    m: int,
+    elem_bytes: int = 1,
+    rows_to_compute_frac: float = 0.5,
+) -> BufferPlan:
+    """Split the feature dimension so a tile group fits the Dense Buffer.
+
+    ``rows_to_compute_frac`` of the buffer feeds the VRF (Fig 4b's
+    Rows-to-Compute region), split ``m`` ways; the rest holds the Result
+    and Temp regions.  One buffered unit holds ``tile_rows`` dense rows of
+    ``f_tile`` columns.
+    """
+    rtc_bytes = int(dense_buffer_bytes * rows_to_compute_frac)
+    per_buffer = max(rtc_bytes // max(m, 1), 1)
+    f_tile = max(per_buffer // (tile_rows * elem_bytes), 1)
+    f_tile = min(f_tile, feature_dim)
+    return BufferPlan(
+        f_tile=f_tile,
+        n_f_tiles=_ceil_div(feature_dim, f_tile),
+        m=m,
+        elem_bytes=elem_bytes,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Hybrid graph preprocessing: edge-cut tiles, then the Algorithm 1 vertex-cut.
 
-A numpy copy of ``repro.core.preprocessing`` (the parts ``preprocess``
-runs); the outputs are exactly the reference's.
+A numpy copy of ``repro.core.preprocessing``; the outputs are exactly
+the reference's.
 
 1. **Inter-tile edge-cut** — a reverse Cuthill–McKee (RCM) symmetric
    permutation stands in for METIS; contiguous row tiles of the permuted
@@ -21,6 +21,7 @@ import numpy as np
 from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from repro_torch.core.sparse_formats import (
+    PAD_COL,
     CSRMatrix,
     TiledELL,
     _ceil_div,
@@ -260,3 +261,16 @@ def preprocess(
     return PreprocessResult(
         ell=ell, perm=perm, tiles=vc_tiles, tau=tau, tile_rows=tile_rows
     )
+
+
+def hot_column_permutation(ell: TiledELL, n_hot: int) -> np.ndarray:
+    """Permutation of the dense rows that puts the ``n_hot`` highest-CNZ
+    columns first (ties in column order), the rest in column order: the
+    leading k-tiles then hold the hot columns, the analogue beyond one
+    tile of the VRF's fixed region."""
+    valid = ell.cols != PAD_COL
+    cnz = np.bincount(ell.cols[valid].ravel(), minlength=ell.n_dense_rows)
+    order = np.argsort(-cnz, kind="stable")
+    hot = order[:n_hot]
+    cold = np.sort(order[n_hot:])
+    return np.concatenate([hot, cold]).astype(np.int64)

@@ -1,7 +1,6 @@
 """Sparse matrix formats: host CSR and the kernel-facing tiled ELL.
 
-A numpy copy of ``repro.core.sparse_formats`` (the parts the GCN path
-uses).  After the intra-tile vertex-cut (Algorithm 1) every (sub-)row
+A numpy copy of ``repro.core.sparse_formats``.  After the intra-tile vertex-cut (Algorithm 1) every (sub-)row
 holds at most ``tau`` nonzeros, so the sparse operand is re-encoded as a
 dense ``(rows, tau)`` table of (column, value) pairs — the ELL format the
 CUDA kernels gather from.
@@ -10,7 +9,7 @@ CUDA kernels gather from.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -151,6 +150,48 @@ def csr_rows_to_ell(
         n_dense_rows=n_dense_rows,
         n_orig_rows=n_orig_rows,
     )
+
+
+def csr_to_ell(
+    mat: CSRMatrix,
+    tau: Optional[int] = None,
+    pad_rows_to: int = 1,
+) -> TiledELL:
+    """Directly re-encode a CSR matrix whose max RNZ already fits ``tau``."""
+    rnz = mat.row_nnz()
+    max_rnz = int(rnz.max()) if rnz.size else 0
+    if tau is None:
+        tau = max(max_rnz, 1)
+    if max_rnz > tau:
+        raise ValueError(f"max RNZ {max_rnz} exceeds tau {tau}")
+    n = mat.rows
+    padded = _ceil_div(max(n, 1), pad_rows_to) * pad_rows_to
+    cols = np.full((padded, tau), PAD_COL, dtype=np.int32)
+    vals = np.zeros((padded, tau), dtype=mat.data.dtype)
+    rmap = np.full((padded,), -1, dtype=np.int32)
+    rmap[:n] = np.arange(n, dtype=np.int32)
+    # each nonzero's slot: its position inside its row
+    pos = np.arange(mat.nnz) - np.repeat(mat.indptr[:-1], rnz)
+    rows = np.repeat(np.arange(n), rnz)
+    cols[rows, pos] = mat.indices
+    vals[rows, pos] = mat.data
+    return TiledELL(
+        cols=cols,
+        vals=vals,
+        row_map=rmap,
+        n_dense_rows=mat.cols,
+        n_orig_rows=n,
+    )
+
+
+def ell_to_dense(ell: TiledELL) -> np.ndarray:
+    """Expand an ELL matrix to a dense f64 (orig_rows, n_dense_rows) array,
+    the sub-rows of a vertex-cut row summed (a test oracle)."""
+    out = np.zeros((ell.n_orig_rows, ell.n_dense_rows), dtype=np.float64)
+    valid = ell.cols != PAD_COL
+    rows = np.broadcast_to(ell.row_map[:, None], ell.cols.shape)[valid]
+    np.add.at(out, (rows, ell.cols[valid]), ell.vals[valid].astype(np.float64))
+    return out
 
 
 def random_power_law_csr(

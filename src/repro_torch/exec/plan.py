@@ -5,8 +5,8 @@ sizes, fusion, placement on a data mesh — so the GCN forward and the entry
 points dispatch through one pipeline.  :meth:`SpmmPlan.resolve` pins the
 impl that will run: the block-skipping ``cuda_sparse`` schedule needs
 host-side occupancy planning over a :class:`TiledELL`, so operands
-without one degrade to the dense-grid ``cuda`` kernel, with a warning and
-the switch recorded on the resolved plan.
+without one degrade to the dense-grid ``cuda`` kernel, with a warning
+once per process and the switch recorded on every resolved plan.
 
 :func:`plan_for_config` builds the static plan from a config, or, given
 the host ELL, the cost model's choice (``repro_torch.plan.autoplan``).
@@ -29,6 +29,25 @@ IMPL_NAMES = {
 }
 VALID_IMPLS = tuple(IMPL_NAMES.values())
 VALID_LAYOUTS = ("replicated", "row_sharded")
+
+# One-time warning registry: reasons already surfaced to the user.
+_DEGRADE_WARNED: set = set()
+
+
+def _warn_once(reason: str) -> None:
+    if reason not in _DEGRADE_WARNED:
+        _DEGRADE_WARNED.add(reason)
+        warnings.warn(reason, RuntimeWarning, stacklevel=4)
+
+
+def reset_degradation_warnings() -> None:
+    """Clear the process-global warn-once registry.
+
+    A degradation is surfaced once per process, not once per call site
+    (serving resolves a plan per batcher and per rung), so tests that
+    count the warning call this first.
+    """
+    _DEGRADE_WARNED.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +147,7 @@ class SpmmPlan:
 
         ``schedulable`` says whether a host-side :class:`TiledELL` is
         available for occupancy planning; without one, ``cuda_sparse``
-        degrades to the dense grid (recorded, and warned).  Resolving an
+        degrades to the dense grid (recorded, warned once).  Resolving an
         already-resolved plan is a no-op.
         """
         if self.resolved:
@@ -141,7 +160,7 @@ class SpmmPlan:
                 "operands do not carry"
             )
             impl = "cuda"
-            warnings.warn(reason, RuntimeWarning, stacklevel=3)
+            _warn_once(reason)
         return dataclasses.replace(
             self, effective_impl=impl, degraded_reason=reason
         )

@@ -164,7 +164,8 @@ def _run_step(cfg, shape, mesh, plan) -> Dict:
 
     from repro_torch.launch import steps
     from repro_torch.launch.shapes import input_specs, materialize
-    from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.roofline.analysis import (CollectiveCounter,
+                                               collective_bytes)
 
     t0 = time.time()
     specs = input_specs(cfg, shape, mesh, plan)
@@ -201,7 +202,7 @@ def _run_step(cfg, shape, mesh, plan) -> Dict:
         "run_s": round(time.time() - t2, 2),
         "flops": float(counter.flops),
         "bytes": float(counter.bytes_accessed),
-        "coll": counter.summary(),
+        "coll": collective_bytes(counter),
         "hlo_lines": counter.ops,
         "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
                    "alias_bytes": alias, "peak_bytes_est": int(peak)},

@@ -153,6 +153,11 @@ def dp_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))
 
 
+def model_axis(mesh) -> str:
+    """The axis that shards the model (tensor parallelism)."""
+    return "model"
+
+
 def axis_size(mesh, name) -> int:
     """Size of axis ``name`` (or the product over a tuple of names) of a
     ``DeviceMesh`` or an abstract mesh."""

@@ -12,7 +12,8 @@ The reference parses collective bytes out of the partitioned HLO; the
 port has no HLO.  Its counterpart, :class:`CollectiveCounter`, is a
 dispatch mode that sees every ``_c10d_functional`` collective a step
 issues (DTensor's redistributions, below the DTensor level) and adds the
-per-device bytes of each result under the reference's keys.  The same
+per-device bytes of each result under the reference's keys;
+:func:`collective_bytes` reads them as the reference's record.  The same
 mode counts the FLOPs of the local ops the ranks run (each op on a
 rank's shard, through ``torch.utils.flop_counter``'s formulas), which is
 the per-device count the reference reads from ``cost_analysis``: a
@@ -118,12 +119,26 @@ class CollectiveCounter(TorchDispatchMode):
         return out
 
     def summary(self) -> Dict[str, object]:
-        """The record the reference's ``collective_bytes`` parses out of
-        the HLO: bytes per kind, ``"total"`` and ``"op_counts"``."""
-        out: Dict[str, object] = dict(self.bytes)
-        out["total"] = sum(self.bytes.values())
-        out["op_counts"] = dict(self.calls)
-        return out
+        """:func:`collective_bytes` of this counter."""
+        return collective_bytes(self)
+
+
+def collective_bytes(counted) -> Dict[str, object]:
+    """Per-collective-kind result bytes (per device), as the reference's
+    ``collective_bytes`` parses them out of the HLO: one entry per kind,
+    zeros included, ``"total"`` and ``"op_counts"`` (calls per kind).
+
+    ``counted`` is a :class:`CollectiveCounter` or its ``summary()``.
+    """
+    if isinstance(counted, CollectiveCounter):
+        nbytes, calls = counted.bytes, counted.calls
+    else:
+        nbytes, calls = counted, counted["op_counts"]
+    out: Dict[str, object] = {c: float(nbytes.get(c, 0.0))
+                              for c in _COLLECTIVES}
+    out["total"] = sum(out[c] for c in _COLLECTIVES)
+    out["op_counts"] = {c: int(calls.get(c, 0)) for c in _COLLECTIVES}
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,7 +29,8 @@ from repro_torch.core import sparse_formats as tsf
 from repro_torch.core.spmm import segment_accumulate, spmm_ell
 from repro_torch.exec import quant
 from repro_torch.exec.operands import SpmmOperands
-from repro_torch.exec.plan import IMPL_NAMES, SpmmPlan, plan_for_config
+from repro_torch.exec.plan import (IMPL_NAMES, SpmmPlan, plan_for_config,
+                                   reset_degradation_warnings)
 from repro_torch.graphs import datasets as tds
 from repro_torch.kernels.flexvector_spmm import pad_operands
 from repro_torch.kernels.ref import spmm_ell_ref
@@ -37,6 +38,14 @@ from repro_torch.models import gcn as tgcn
 from repro_torch.models.convert import params_from_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+
+@pytest.fixture(autouse=True)
+def _fresh_degradation_registry():
+    """The port warns once per process; each test starts unwarned."""
+    reset_degradation_warnings()
+
 
 # (n, nnz, tau, tile_rows, edge_cut, alpha, seed)
 PREPROCESS_CASES = [

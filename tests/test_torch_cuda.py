@@ -229,6 +229,41 @@ def test_cuda_forward_matches_cpu(cuda_device, impl, fused):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+def test_cuda_spmm_ell_arrays_matches_cpu(cuda_device, impl, int8):
+    """The array-level entry point launches the dense-grid kernel (a
+    sparse plan degrades: no host ELL) and agrees with its CPU run."""
+    import warnings
+
+    from repro_torch.core.preprocessing import preprocess
+    from repro_torch.core.spmm import spmm_ell_arrays
+    from repro_torch.exec import quant
+
+    ell = preprocess(random_power_law_csr(320, 320, 5000, alpha=2.8, seed=2),
+                     tau=6, tile_rows=32, pad_rows_to=32).ell
+    dense = np.random.default_rng(3).standard_normal((320, 40)).astype(
+        np.float32)
+    vals, scales = ell.vals, None
+    if int8:
+        q, sc = quant.quantize_values(torch.as_tensor(ell.vals), 32)
+        vals, scales = q.numpy(), sc.numpy()
+    kw = dict(impl=impl, block_rows=32, block_k=32, block_f=32,
+              scales=scales)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        ref = spmm_ell_arrays(ell.cols, vals, ell.row_map, dense,
+                              ell.n_orig_rows, device="cpu", **kw)
+        fv.reset_launches()
+        out = spmm_ell_arrays(ell.cols, vals, ell.row_map, dense,
+                              ell.n_orig_rows, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == ref.shape
+    assert {k for k, n in fv.LAUNCHES.items() if n} == {"spmm_ell_dense_grid"}
+    assert rel_max_err(out, ref) <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "int8"])
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 @pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])

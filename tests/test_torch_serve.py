@@ -47,7 +47,7 @@ from repro.serve.engine import latency_report as j_latency_report
 
 from repro_torch.core.sparse_formats import CSRMatrix as TCSR
 from repro_torch.dist.collectives import LEDGER as T_LEDGER
-from repro_torch.exec.plan import IMPL_NAMES
+from repro_torch.exec.plan import IMPL_NAMES, reset_degradation_warnings
 from repro_torch.graphs import datasets as tdatasets
 from repro_torch.graphs import sampling as tsampling
 from repro_torch.kernels import flexvector_spmm as fv
@@ -64,6 +64,12 @@ from repro_torch.serve.cache import LruDict as TLruDict
 from repro_torch.serve.engine import latency_report as t_latency_report
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _fresh_degradation_registry():
+    """The port warns once per process; each test starts unwarned."""
+    reset_degradation_warnings()
 SPEC = DatasetSpec("toy", nodes=400, edges=1_600, feature_dim=32, classes=5)
 RTOL = 1e-5
 PRECISIONS = ("f32", "bf16", "int8")

@@ -18,7 +18,14 @@ its own:
 2. Kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the shapes the main path gives it (both GCN layers) and on a
    small ragged case: the four f32 kernels, their bf16 instantiations
-   (``name@bf16``) and their int8 ``_scaled`` variants.  Each is timed with
+   (``name@bf16``) and their int8 ``_scaled`` variants, and the
+   aggregation kernels' other stores (``STORE_KEYS``): the bf16 store of
+   f32, bf16 and scaled int8 values (``name@f32->bf16``, ``@bf16->bf16``,
+   ``_scaled@int8->bf16``: within one bf16 ulp of the plain version, the
+   plain f32 sum rounded to bf16) and the exact int8 x int8 -> int32
+   product (``name@int8->int32``: the main path's int8 values without
+   their scales times an int8 operand of the layer's width from numpy
+   seed ``SEED``, ``torch.equal`` to the plain version).  Each is timed with
    CUDA events beside the plain version, a library call computing the same
    function (``torch.sparse.mm``, never used by the port) and the least
    time the card could take for the layer's real widths at its storage
@@ -34,7 +41,16 @@ its own:
    As a control, the fused bf16/int8 plain version without its bf16
    rounding of ``X W + b`` must fail the agreement check.  A small graph's
    forward pass on the card, at each precision, is held against the same
-   precision on the CPU.
+   precision on the CPU.  Then the public path at full size
+   (``public_dtype_check``): ``repro_torch.core.spmm_ell`` over the
+   dataset's own ELL with the main path's int8 values, unscaled, times an
+   int8 operand of each layer's width, under ``cuda`` and ``cuda_sparse``,
+   each answer ``torch.equal`` to ``impl="reference"``'s int32 answer;
+   and ``SpmmPlan(out_dtype=torch.bfloat16)`` at f32, bf16 and int8 under
+   both impls against the reference impl at that precision, within the
+   bound of a bf16 store and a bf16 fold.  The launch counts are reset
+   just before and read just after: each of ``STORE_KEYS`` must have
+   launched.
 3. Main path, f32: the dataset at its published widths through
    ``GCNGraph.build`` and a 2-layer ``gcn_forward`` under the four kernel
    configs (dense/sparse grid x unfused/fused), each held against the
@@ -345,14 +361,23 @@ REPLACES = {
 KERNELS = tuple(REPLACES)   # the eight pallas_call sites
 BASE = KERNELS[:4]
 PRECISIONS = ("f32", "bf16", "int8")
-# Phase 2's entries: a kernel name, "@bf16" for its bf16 instantiation.
-KEYS = BASE + tuple(f"{n}@bf16" for n in BASE) + KERNELS[4:]
+# The aggregation kernels' other stores, "<name>@<values>-><store>": the
+# bf16 store of each precision's values and the exact int8 x int8 ->
+# int32 product (which the TPU computes in its unscaled pallas_call).
+STORE_KEYS = tuple(
+    f"{base}{'_scaled' if precision == 'int8->bf16' else ''}@{precision}"
+    for base in BASE[:2]
+    for precision in ("f32->bf16", "bf16->bf16", "int8->bf16", "int8->int32"))
+# Phase 2's entries: a kernel name, "@bf16" for its bf16 instantiation,
+# then the other stores.
+KEYS = BASE + tuple(f"{n}@bf16" for n in BASE) + KERNELS[4:] + STORE_KEYS
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32 on
 # the CUDA cores (the f32 kernels do f32 FMA, no TF32) and dense bf16 on
 # the tensor cores, the least time for products of bf16 and int8 inputs.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 # Agreement of an output with its reference takes two limits: its
 # largest error, as a fraction of max|reference| (REL_TOL,
 # FORWARD_REL_TOL), and the share of its elements off by more than
@@ -380,6 +405,15 @@ REL_TOL = {
 for _n in BASE:
     REL_TOL[f"{_n}@bf16"] = REL_TOL[f"{_n}_scaled"] = (
         8e-3 if "fused" in _n else 1e-5)
+# The other stores are held element by element (``store_holds``): the
+# int32 product exactly (integer sums in any order), a bf16 store within
+# one bf16 ulp of the plain f32 sum rounded to bf16 (2^-7 of the larger
+# magnitude's power of two) beyond the f32 store's bar (1e-5 of
+# max|plain|): the two f32 sums differ by FMA contraction only, and each
+# rounding to bf16 adds at most half an ulp.  REL_TOL holds the ulp's
+# share of its power of two.
+for _k in STORE_KEYS:
+    REL_TOL[_k] = 0.0 if _k.endswith("int32") else 2.0 ** -7
 FLIP_REL = 1e-5
 FLIP_SHARE = 1e-2
 # Forward vs the reference impl: two layers of the above, plus
@@ -607,10 +641,37 @@ def ell_csr(torch, cols, vals, n_cols: int, k_limit: int):
 
 
 def split_key(key: str) -> tuple:
-    """``(kernel name, precision)`` of a phase 2 entry."""
-    if key.endswith("@bf16"):
-        return key[:-len("@bf16")], "bf16"
+    """``(kernel name, precision)`` of a phase 2 entry (the precision with
+    ``-><store>`` for the other stores)."""
+    if "@" in key:
+        return tuple(key.split("@"))
     return key, "int8" if key.endswith("_scaled") else "f32"
+
+
+def within_one_bf16_ulp(torch, out, ref, f32_tol: float) -> bool:
+    """Every element of bf16 ``out`` within one bf16 ulp of bf16 ``ref``
+    (the larger magnitude's: 2^-7 of its power of two) beyond ``f32_tol``
+    of max|ref|, the bar of the two f32 sums they round (which rounding
+    carries across, however many ulps of a cancelled sum it is)."""
+    out, ref = out.double(), ref.double()
+    mag = torch.maximum(out.abs(), ref.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    slack = f32_tol * float(ref.abs().max())
+    return bool(((out - ref).abs() <= ulp + slack).all())
+
+
+def store_holds(torch, key: str, out, ref, real) -> bool:
+    """A phase 2 output against its plain version: the other stores
+    element by element (``REL_TOL``'s note), the rest by ``agrees``."""
+    if key not in STORE_KEYS:
+        return agrees(agreement(torch, out, ref, real), REL_TOL[key])
+    out, ref = out[:real[0], :real[1]], ref[:real[0], :real[1]]
+    if out.dtype != ref.dtype:
+        return False
+    if key.endswith("int32"):
+        return bool(torch.equal(out, ref))
+    return within_one_bf16_ulp(torch, out, ref,
+                               REL_TOL[split_key(key)[0]])
 
 
 def is_aggregation(name: str) -> bool:
@@ -633,7 +694,9 @@ def work(torch, name: str, args, kw, real=None) -> dict:
     X W on the referenced rows then aggregation, or aggregation of X then
     the product; fused bf16/int8 only the former, since X W + b is rounded
     before it is aggregated.  f32 FLOPs count at the CUDA-core f32 peak,
-    bf16/int8 ones at the bf16 tensor-core peak.
+    bf16/int8 ones at the bf16 tensor-core peak, int8 x int8 ones at the
+    int8 tensor-core peak.  The output is written at its store's width
+    (``out_dtype``).
     """
     if real is None:
         real = (args[0].shape[0],
@@ -645,6 +708,8 @@ def work(torch, name: str, args, kw, real=None) -> dict:
     if kw.get("scales") is not None:
         ell_bytes += 4 * -(-r // kw["block_rows"])
     quant = vals.dtype != torch.float32
+    out_size = torch.empty(0, dtype=kw.get("out_dtype") or torch.float32
+                           ).element_size()
     if is_aggregation(name):
         dense = args[2]
         k = dense.shape[0]
@@ -653,7 +718,7 @@ def work(torch, name: str, args, kw, real=None) -> dict:
         uniq = int(torch.unique(cols[keep]).numel())
         sched = sum(4 * a.numel() for a in args[3:])
         nbytes = (ell_bytes + sched + dense.element_size() * uniq * f
-                  + 4 * r * f)
+                  + out_size * r * f)
         flops = 2 * nnz * f
     else:
         x, w = args[2], args[3]
@@ -670,6 +735,8 @@ def work(torch, name: str, args, kw, real=None) -> dict:
             flops = min(flops, 2 * nnz * f_in + 2 * rows * f_in * f)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     rate = BF16_FLOPS_PER_S if quant else F32_FLOPS_PER_S
+    if is_aggregation(name) and args[2].dtype == torch.int8:
+        rate = INT8_OPS_PER_S
     t_flops = flops / rate * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
@@ -711,13 +778,33 @@ def library_call(torch, name: str, args, kw):
     """One PyTorch call computing the kernel's function (a yardstick), and
     what it is.  Under bf16/int8 it takes a bf16 CSR of the (dequantized)
     values if cuSPARSE accepts one, else an f32 CSR with the bf16 operand
-    widened inside the call."""
+    widened inside the call.  An int8 x int8 product takes int32 operands
+    if a call accepts them, else the f32 call over the widened operands,
+    so labelled.  A bf16 store has no call of its own: the call of its
+    values' precision stands in (its output f32, or bf16 from bf16
+    operands)."""
     from repro_torch.kernels.ref import dequantize_rows
 
     cols, vals = args[0], args[1]
     if kw.get("scales") is not None:
         vals = dequantize_rows(vals, kw["scales"], kw["block_rows"])
     agg = is_aggregation(name)
+    if agg and args[2].dtype == torch.int8:
+        k = args[2].shape[0]
+        a = ell_csr(torch, cols, vals.to(torch.int32), k, k)
+        dense = args[2].to(torch.int32)
+        try:
+            torch.sparse.mm(a, dense)
+            torch.cuda.synchronize()
+            return (lambda: torch.sparse.mm(a, dense),
+                    "torch.sparse.mm(int32 CSR, int32)")
+        except RuntimeError:
+            a = ell_csr(torch, cols, vals.to(torch.float32), k, k)
+            dense = args[2].to(torch.float32)
+            return (lambda: torch.sparse.mm(a, dense),
+                    "none takes int8 x int8 -> int32 on CUDA; timed: "
+                    "torch.sparse.mm(f32 CSR, f32) over the widened "
+                    "operands")
     k = args[2].shape[0]
     k_limit = k if agg else kw["k_real"]
     if agg:
@@ -792,7 +879,12 @@ def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
     """Each phase 2 entry's (args, kwargs, real) for both layers of one
     forward pass at its precision, built by the same functions the
     dispatch uses; real is the unpadded output shape (rows, width), for a
-    fused kernel followed by the unpadded input width."""
+    fused kernel followed by the unpadded input width.  The other stores
+    take each precision's aggregation arguments with ``out_dtype``; the
+    int8 x int8 product the int8 values without their scales and an int8
+    operand of the layer's shape from numpy seed ``SEED``."""
+    import numpy as np
+
     from repro_torch.exec import quant
     from repro_torch.exec.dispatch import (aggregation_args, execute_layer,
                                            prepare_precision)
@@ -800,6 +892,8 @@ def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
 
     operands, perm, _ = graph.on_device(dev)
     cases = {key: [] for key in KEYS}
+    rng = np.random.default_rng(SEED)
+    int8_dense = {}
     for precision in PRECISIONS:
         blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
                       block_f=cfg.block_f, precision=precision)
@@ -817,6 +911,17 @@ def main_path_cases(torch, rt, graph, cfg, params, feats, dev) -> dict:
                 name, args, kw, real = aggregation_args(plan, operands, vals,
                                                         dense, scales)
                 cases[name + tag].append((args, kw, real))
+                cases[f"{name}@{precision}->bf16"].append(
+                    (args, dict(kw, out_dtype=torch.bfloat16), real))
+                if precision == "int8":
+                    if i not in int8_dense:
+                        int8_dense[i] = torch.as_tensor(rng.integers(
+                            -128, 128, tuple(xw.shape), dtype=np.int8),
+                            device=dev)
+                    name, args, kw, real = aggregation_args(
+                        plan, operands, vals, int8_dense[i], None)
+                    cases[f"{name}@int8->int32"].append(
+                        (args, dict(kw, out_dtype=torch.int32), real))
                 name, args, kw, real = fused_args(plan, operands, x, layer,
                                                   cfg.block_rows)
                 cases[name + tag].append((args, kw, real + (x.shape[1],)))
@@ -832,7 +937,8 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
     a multiple of 128, a row block with no entries, k_real < K, a schedule
     that omits an occupied tile, a kb_ids list with -1 padding and, for
     int8, one scale fewer than row blocks (the last takes 1.0); fused calls
-    get the table's slot lists."""
+    get the table's slot lists.  The int8 x int8 product takes the int8
+    values without scales and 40 int8 columns (padded to 48)."""
     from repro_torch.core.dataflow import plan_fused_k_schedule, plan_kernel_grid
     from repro_torch.core.sparse_formats import TiledELL
     from repro_torch.kernels.flexvector_spmm import (column_slots,
@@ -888,6 +994,18 @@ def ragged_cases(torch, np, dev, seed: int) -> dict:
             f"spmm_ell_fused_dense_grid{tag}": ((c, v, xx, ww, b), fkw),
             f"spmm_ell_fused_sparse_grid{tag}": ((c, v, xx, ww, b, kb), fkw),
         })
+        suffix = "_scaled" if precision == "int8" else ""
+        bf = dict(akw, out_dtype=torch.bfloat16)
+        out.update({
+            f"spmm_ell_dense_grid{suffix}@{precision}->bf16": ((c, v, d), bf),
+            f"spmm_ell_sparse_grid{suffix}@{precision}->bf16": (
+                (c, v, d, bm), bf),
+        })
+    # int8 x int8 -> int32: 40 int8 columns, padded to 48 by the wrapper
+    d8 = t(rng.integers(-128, 128, (k, f)), torch.int8)
+    i32 = dict(kw, out_dtype=torch.int32)
+    out["spmm_ell_dense_grid@int8->int32"] = ((c, q, d8), i32)
+    out["spmm_ell_sparse_grid@int8->int32"] = ((c, q, d8, bm), i32)
     return out
 
 
@@ -932,12 +1050,14 @@ def phase_kernels(torch, np, fv, cases, dev) -> dict:
         name, _ = split_key(key)
         kernel, plain = fv.KERNELS[name], fv.PLAIN[name]
         args, kw = ragged[key]
-        got = agreement(torch, kernel(*args, **kw), plain(*args, **kw))
+        out, ref = kernel(*args, **kw), plain(*args, **kw)
+        got = agreement(torch, out, ref)
         torch.cuda.synchronize()
         print(f"phase 2: {key} ragged {describe(got)} (tol "
               f"{REL_TOL[key]:.0e}, flip share {FLIP_SHARE:.0e})")
-        check(agrees(got, REL_TOL[key]), f"{key} disagrees with its plain "
-              f"version on the ragged case: {describe(got)}")
+        check(store_holds(torch, key, out, ref, tuple(ref.shape)),
+              f"{key} disagrees with its plain version on the ragged case: "
+              f"{describe(got)}")
         entry = {"max_abs_err": got["err"], "max_rel_err": got["rel"],
                  "max_flip_share": got["flip_share"], "per_layer": []}
         for layer, (args, kw, real) in enumerate(cases[key]):
@@ -945,8 +1065,8 @@ def phase_kernels(torch, np, fv, cases, dev) -> dict:
             got = agreement(torch, out, ref, real)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out).all()), f"{key} non-finite output")
-            check(agrees(got, REL_TOL[key]), f"{key} layer {layer} disagrees "
-                  f"with its plain version: {describe(got)}")
+            check(store_holds(torch, key, out, ref, real), f"{key} layer "
+                  f"{layer} disagrees with its plain version: {describe(got)}")
             if kw.get("cast_xw") is not None:
                 # control: the plain version without the bf16 rounding of
                 # X W + b, what a kernel that skipped it would give
@@ -1088,6 +1208,98 @@ def small_forward_check(torch, np, rt, dev) -> None:
             check(agrees(got, FORWARD_REL_TOL[precision], FORWARD_FLIP_SHARE),
                   f"small forward {precision} {impl} fused={fused}: "
                   f"{describe(got)}")
+
+
+def public_dtype_check(torch, np, rt, graph, cfg, dev) -> dict:
+    """The dtype contract through the public entry point at full size.
+
+    ``repro_torch.core.spmm_ell`` over the dataset's own ELL: (a) with the
+    main path's int8 values, unscaled, times an int8 operand of each
+    layer's width (numpy seed ``SEED``) under ``cuda`` and ``cuda_sparse``,
+    each int32 answer ``torch.equal`` to ``impl="reference"``'s; (b) under
+    ``SpmmPlan(out_dtype=torch.bfloat16)`` at each precision, times an f32
+    operand of the hidden width, against the reference impl at that
+    precision (which does not read ``out_dtype``, so its answer is f32).
+    (b)'s bound per element: each sub-row rounded to bf16 once (2^-9 of
+    its magnitude) and each of a row's ``n`` bf16 additions in the fold
+    (2^-9 of the running sum), so at most 2^-8 (n + 1) S, S the row's sum
+    of |value| x |operand| (the reference impl over the magnitudes).  The
+    launch counts are reset just before the kernel calls and read just
+    after: each of ``STORE_KEYS`` must have launched."""
+    from repro_torch.core import spmm_ell
+    from repro_torch.kernels import flexvector_spmm as fv
+
+    ell = graph.pre.ell
+    operands, _, _ = graph.on_device(dev)
+    q, _ = operands.values_for("int8", cfg.block_rows)
+    ell8 = dataclasses.replace(ell, vals=q.cpu().numpy())
+    ell_abs = dataclasses.replace(ell, vals=np.abs(ell.vals))
+    blocks = dict(block_rows=cfg.block_rows, block_k=cfg.block_k,
+                  block_f=cfg.block_f)
+    rng = np.random.default_rng(SEED)
+    k = ell.n_dense_rows
+    int8_dense = {w: torch.as_tensor(rng.integers(-128, 128, (k, w),
+                                                  dtype=np.int8), device=dev)
+                  for w in (cfg.hidden_dim, cfg.out_dim)}
+    dense = torch.as_tensor(rng.standard_normal((k, cfg.hidden_dim)).astype(
+        np.float32), device=dev)
+    row_map = torch.as_tensor(ell.row_map, device=dev).long()
+    parts = torch.bincount(row_map[row_map >= 0], minlength=ell.n_orig_rows)
+
+    def ref_plan(precision):
+        return rt.SpmmPlan(impl="reference", precision=precision, **blocks)
+
+    int32_ref = {w: spmm_ell(ell8, d, impl="reference", device=dev, **blocks)
+                 for w, d in int8_dense.items()}
+    bf16_ref, bound = {}, {}
+    for precision in PRECISIONS:
+        bf16_ref[precision] = spmm_ell(ell, dense, plan=ref_plan(precision),
+                                       device=dev).double()
+        mag = spmm_ell(ell_abs, dense.abs(), plan=ref_plan(precision),
+                       device=dev).double()
+        bound[precision] = 2.0 ** -8 * (parts + 1).double()[:, None] * mag
+    torch.cuda.synchronize()
+    fv.reset_launches()
+    int32, bf16 = {}, {}
+    for impl in ("cuda", "cuda_sparse"):
+        for w, d in int8_dense.items():
+            got = spmm_ell(ell8, d, impl=impl, device=dev, **blocks)
+            want = int32_ref[w]
+            check(got.dtype == want.dtype == torch.int32, f"int8 x int8 "
+                  f"{impl} width {w}: dtypes {got.dtype} / {want.dtype}")
+            equal = bool(torch.equal(got, want))
+            int32[f"{impl} width {w}"] = {
+                "equal": equal, "shape": list(got.shape),
+                "max_abs": int(want.abs().max())}
+            print(f"phase 2: public spmm_ell int8 x int8 -> int32 {impl} "
+                  f"width {w}: {tuple(got.shape)} torch.equal to the "
+                  f"reference impl: {equal} (max |answer| "
+                  f"{int(want.abs().max())})")
+            check(equal, f"int8 x int8 {impl} width {w}: not equal to the "
+                  "reference impl's int32 answer")
+        for precision in PRECISIONS:
+            plan = rt.SpmmPlan(impl=impl, precision=precision,
+                               out_dtype=torch.bfloat16, **blocks)
+            got = spmm_ell(ell, dense, plan=plan, device=dev)
+            check(got.dtype == torch.bfloat16, f"out_dtype=bf16 {impl} "
+                  f"{precision}: dtype {got.dtype}")
+            err = (got.double() - bf16_ref[precision]).abs()
+            use = float((err / bound[precision].clamp(min=1e-30)).max())
+            reading = agreement(torch, got, bf16_ref[precision])
+            bf16[f"{impl} {precision}"] = dict(reading, bound_use=use)
+            print(f"phase 2: public spmm_ell out_dtype=bf16 {impl} at "
+                  f"{precision}: {describe(reading)}, largest error / bound "
+                  f"{use:.3f}")
+            check(use <= 1.0, f"out_dtype=bf16 {impl} at {precision}: an "
+                  f"error {use:.3f}x its bound")
+    torch.cuda.synchronize()
+    counts = dict(fv.PRECISION_LAUNCHES)
+    print(f"phase 2: public spmm_ell launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    for key in STORE_KEYS:
+        check(counts[key] > 0, f"{key} was not launched by the public path")
+    return {"launches": {key: counts[key] for key in STORE_KEYS},
+            "int8_x_int8": int32, "out_dtype_bf16": bf16}
 
 
 def timed_forwards(torch, fn) -> tuple:
@@ -5167,6 +5379,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
     kernels = phase_kernels(torch, np, fv, cases, dev)
     multi_slab = multi_slab_check(torch, np, fv, dev)
     small_forward_check(torch, np, rt, dev)
+    public = public_dtype_check(torch, np, rt, graph, cfg, dev)
     main = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
                            ("f32",), 3)
     quant = phase_main_path(torch, rt, fv, graph, cfg, params, feats, dev,
@@ -5279,6 +5492,12 @@ def drive(torch, np, args, cache_dir: str) -> int:
                    if k.split("@")[0] == name} for rk in e["per_rank"]]
             for key, e in serving_mesh["engines"].items()}
         lines.append(line)
+    for key in STORE_KEYS:   # launched by public_dtype_check
+        line = {"name": key, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[split_key(key)[0]],
+                "launches": public["launches"][key]}
+        line.update(summary(key))
+        lines.append(line)
     print(json.dumps({"fused_split": {
         key: [cell["split"] for cell in kernels[key]["per_layer"]]
         for key in KEYS if not is_aggregation(split_key(key)[0])}}))
@@ -5286,6 +5505,7 @@ def drive(torch, np, args, cache_dir: str) -> int:
               for key in ("forward_ms", "device_busy_ms", "device_idle_share")}
     print(json.dumps({"kernels": lines, "dataset": args.dataset, **merged,
                       "multi_slab": multi_slab,
+                      "public_dtype_check": public,
                       "logit_error_vs_f32": quant["logit_error_vs_f32"],
                       "f32_control_vs_reference":
                           quant["control_vs_reference"]}))

@@ -29,6 +29,7 @@ def spmm_ell(
     block_f: int = 128,
     *,
     plan=None,
+    mesh=None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> torch.Tensor:
     """Compute ``A @ dense`` for a preprocessed bounded-row sparse ``A``.
@@ -38,17 +39,30 @@ def spmm_ell(
       * ``cuda``        — the dense-grid FlexVector kernel.
       * ``cuda_sparse`` — the block-skipping FlexVector kernel.
 
-    Runs on ``"cuda"`` unless ``device`` says otherwise.
+    ``plan`` overrides the per-impl arguments with a prebuilt
+    :class:`~repro_torch.exec.SpmmPlan`; ``mesh`` is shorthand for
+    ``SpmmPlan(mesh=...)`` (a data mesh wider than one rank runs sharded),
+    and raises beside ``plan``.  ``dense`` keeps its dtype
+    (:func:`dense_operand`): an int8 operand beside an ELL of integer
+    values gives the kernels' exact int32 product, a bf16 one runs with the
+    values cast to bf16, as in the reference.  Runs on ``"cuda"`` unless
+    ``device`` says otherwise.
     """
     from repro_torch.exec import SpmmOperands, SpmmPlan, execute
 
     dev = resolve_device(device)
     if plan is None:
         plan = SpmmPlan(
-            impl=impl, block_rows=block_rows, block_k=block_k, block_f=block_f
+            impl=impl, block_rows=block_rows, block_k=block_k,
+            block_f=block_f, mesh=mesh,
         )
-    dense = torch.as_tensor(dense, dtype=torch.float32, device=dev)
-    return execute(plan, SpmmOperands.from_ell(ell, dev), dense)
+    elif mesh is not None:
+        raise ValueError(
+            "pass placement on the plan (SpmmPlan(mesh=...)), not both "
+            "plan= and mesh="
+        )
+    return execute(plan, SpmmOperands.from_ell(ell, dev),
+                   dense_operand(dense, dev))
 
 
 def spmm_ell_arrays(
@@ -95,8 +109,22 @@ def spmm_ell_arrays(
         scale_block_rows=scale_block_rows,
         precision="int8" if scales is not None else "f32",
     )
-    dense = torch.as_tensor(dense, dtype=torch.float32, device=dev)
-    return execute(plan, operands, dense)
+    return execute(plan, operands, dense_operand(dense, dev))
+
+
+def dense_operand(dense, device) -> torch.Tensor:
+    """The dense operand of an entry point, on ``device``.
+
+    A tensor or a numpy array keeps its dtype, except that a 64-bit one
+    is narrowed to 32 bits (f64 to f32, int64 to int32), as the
+    reference's ``jnp.asarray`` does; anything else (a list, a scalar) is
+    f32.
+    """
+    if not isinstance(dense, (torch.Tensor, np.ndarray)):
+        return torch.as_tensor(dense, dtype=torch.float32, device=device)
+    t = torch.as_tensor(dense, device=device)
+    narrow = {torch.float64: torch.float32, torch.int64: torch.int32}
+    return t.to(narrow[t.dtype]) if t.dtype in narrow else t
 
 
 def segment_accumulate(

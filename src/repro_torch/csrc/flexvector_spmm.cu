@@ -1,8 +1,8 @@
 // FlexVector ELL SpMM kernels for Hopper (sm_90a), plain C interface.
 //
 // Four entry points, each covering two TPU kernels of
-// src/repro/kernels/flexvector_spmm.py: the f32/bf16 kernel and its int8
-// _scaled variant (vtype 2, below):
+// src/repro/kernels/flexvector_spmm.py: the f32/bf16/int8-exact kernel and
+// its int8 _scaled variant (vtype 2, below):
 //
 //   fv_spmm_dense_grid   <- spmm_ell_dense_grid        (pallas_call :156, :164)
 //   fv_spmm_sparse_grid  <- spmm_ell_sparse_grid       (pallas_call :271, :288)
@@ -11,17 +11,25 @@
 //
 // Storage types (vtype): 0 = f32 values with f32 dense / x / w; 1 = bf16
 // values with bf16 dense / x / w; 2 = int8 values times one f32 scale per
-// row block (scales[r / block_rows]) with bf16 dense / x / w.  Biases and
-// outputs are f32.  Each C function launches on the given stream, does not
-// synchronise and returns cudaGetLastError() (or cudaErrorInvalidValue for
-// an argument it does not take); the Python wrappers in
-// repro_torch/kernels/flexvector_spmm.py check shapes, dtypes and padding,
-// allocate the outputs and raise on a non-zero result.  All sums are f32:
-// f32 FMA on the CUDA cores (no TF32), except the fused layer's bf16 X W
-// tile, which the tensor cores sum in f32; a bf16 or int8 operand is
-// widened to f32 on load, an int8 value as float(q) * scale, so that each
-// term is (float(q) * scale) * float(d) like the TPU kernels' a_blk *
-// scale before their f32 dot.
+// row block (scales[r / block_rows]) with bf16 dense / x / w; 3
+// (aggregation only) = int8 values with int8 dense and no scales, the TPU
+// kernels' integer path (_acc_dtype: an integer operand accumulates in
+// int32).  Biases are f32.  Output (otype, aggregation only): 0 = f32, 1 =
+// bf16 (each finished f32 sum rounded once, round to nearest even; the
+// out_dtype=bfloat16 store), 2 = int32 (vtype 3, its only store); the
+// fused kernels' output is f32.  Each C function launches on the given
+// stream, does not synchronise and returns cudaGetLastError() (or
+// cudaErrorInvalidValue for an argument or a type pair it does not take);
+// the Python wrappers in repro_torch/kernels/flexvector_spmm.py check
+// shapes, dtypes and padding, allocate the outputs and raise on a non-zero
+// result.  Float sums are f32: f32 FMA on the CUDA cores (no TF32), except
+// the fused layer's bf16 X W tile, which the tensor cores sum in f32; a
+// bf16 or int8 operand is widened to f32 on load, an int8 value as
+// float(q) * scale, so that each term is (float(q) * scale) * float(d)
+// like the TPU kernels' a_blk * scale before their f32 dot.  vtype 3 uses
+// no float: int8 values and int8 dense are widened to int32 and multiplied
+// and added in int32 registers, so the answer is exact (|q d| <= 2^14, so
+// a row overflows only past 2^17 slots).
 //
 // Aggregation (dense grid / sparse grid): out[r,:] = sum_t vals[r,t] *
 // dense[cols[r,t],:].  The TPU kernels expand a one-hot (BR, BK) block per
@@ -52,8 +60,9 @@
 //     L2 policy on the dense loads (createpolicy + L2::cache_hint) measured
 //     no better, so the loads take the default policy.
 //   * 16-byte gathers, many in flight: a group of lanes spans one slab
-//     row, a lane per 16-byte piece (4 f32 or 8 bf16 columns; 8 lanes for a
-//     128-byte slab, fewer for a narrower one, up to 32 and then a loop),
+//     row, a lane per 16-byte piece (4 f32, 8 bf16 or 16 int8 columns; 8
+//     lanes for a 128-byte slab, fewer for a narrower one, up to 32 and
+//     then a loop),
 //     so a warp works on several rows at once.  Each lane decodes its row's
 //     slots itself (the group's lanes load the same words, one transaction;
 //     two slots a load when tau is even) and issues every gather of up to
@@ -61,12 +70,18 @@
 //     The sparse grid's bitmap test runs beside the gathers and drops only
 //     the FMA of an unlisted slot.  Groups need no warp collectives, so a
 //     group may straddle warps and a CTA may hold any count of them; the
-//     registers are capped for four CTAs (32 warps) per SM.
+//     registers are capped for four CTAs (32 warps) per SM, three for the
+//     int32 instantiation, whose lane keeps 16 int32 sums (a 16-column int8
+//     piece) beside its 8 gathered pieces.
+//   * stores: a piece's sums leave as 16-byte vectors (one float4 per 4
+//     f32 columns, one uint4 per 8 bf16 or 4 int32), or one 8-byte uint2
+//     for the 4 bf16 columns of an f32 piece.
 // Each CTA holds rows of one row block (for its int8 scale and its
 // schedule bitmap).  Order of sums: each output element adds its slots'
 // products in slot order, one fmaf each, starting from +0, at every
 // precision; only FMA contraction differs from the plain version.  A bf16
-// or int8 value is widened and scaled first ((float(q) * scale) * d).
+// or int8 value is widened and scaled first ((float(q) * scale) * d).  The
+// int32 sums are exact in any order.
 
 // The sparse grid honours its schedule.  The TPU kernel takes the (rb_ids,
 // kb_ids, first) steps of plan_kernel_grid; the schedule is a per-graph
@@ -146,7 +161,10 @@ constexpr int kAggBatch = 8;
 constexpr int kMaxGroup = 32;
 // Aggregation CTAs resident per SM: caps the registers at 64 a thread so
 // that 32 warps keep their gathers in flight (bf16 and int8 would take 72).
+// The int32 instantiation's 16 sums a lane take it to three (80
+// registers).
 constexpr int kAggBlocksPerSM = 4;
+constexpr int kAggBlocksPerSMInt = 3;
 
 constexpr int kDefaultSmemLimit = 48 * 1024;
 
@@ -163,13 +181,24 @@ constexpr int kColsPerThread = kXwCols / 32;      // 4
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Storage types of the C interface.
-enum VType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// Storage types of the C interface: values (with their dense operand) and
+// the aggregation's output.
+enum VType { kF32 = 0, kBF16 = 1, kI8 = 2, kI8Exact = 3 };
+enum OType { kOutF32 = 0, kOutBF16 = 1, kOutI32 = 2 };
 
-// The dense operand (or fused x / w) beside values of type V.
+// The fused kernels' x / w beside values of type V.
 template <typename V>
 using Dense = typename std::conditional<std::is_same<V, float>::value, float,
                                         __nv_bfloat16>::type;
+
+// The aggregation's sums beside output type O: int32 for the int32 store,
+// else f32.
+template <typename O>
+using Acc = typename std::conditional<std::is_same<O, int>::value, int,
+                                      float>::type;
+template <typename O>
+constexpr int kAggBlocks =
+    std::is_same<O, int>::value ? kAggBlocksPerSMInt : kAggBlocksPerSM;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -189,7 +218,7 @@ __device__ __forceinline__ void zero_bitmap(unsigned* bitmap, int words) {
 // Aggregation: dense grid (kSched = false) and sparse grid (kSched = true)
 // ---------------------------------------------------------------------------
 
-// 16 bytes of the dense operand: four f32 or eight bf16 columns.
+// 16 bytes of the dense operand: four f32, eight bf16 or 16 int8 columns.
 template <typename T>
 struct Piece {
   static constexpr int kCols = 16 / (int)sizeof(T);
@@ -201,29 +230,45 @@ __device__ __forceinline__ T ell_load(const T* p) {
   return __ldcs(p);
 }
 
-__device__ __forceinline__ float load_val(const float* p) {
-  return ell_load(p);
+// One ELL value, widened to the sums' type (int8 to int32 only beside the
+// int32 store).
+__device__ __forceinline__ void load_val(const float* p, float& v) {
+  v = ell_load(p);
 }
-__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
+__device__ __forceinline__ void load_val(const __nv_bfloat16* p, float& v) {
+  v = __bfloat162float(__ushort_as_bfloat16(
       ell_load(reinterpret_cast<const unsigned short*>(p))));
 }
-__device__ __forceinline__ float load_val(const int8_t* p) {
-  return (float)ell_load(reinterpret_cast<const signed char*>(p));
+__device__ __forceinline__ void load_val(const int8_t* p, float& v) {
+  v = (float)ell_load(reinterpret_cast<const signed char*>(p));
+}
+__device__ __forceinline__ void load_val(const int8_t* p, int& v) {
+  v = (int)ell_load(reinterpret_cast<const signed char*>(p));
 }
 
 // Two consecutive values of an ELL row (8-, 4- or 2-byte aligned).
-__device__ __forceinline__ float2 load_val2(const float* p) {
-  return ell_load(reinterpret_cast<const float2*>(p));
+__device__ __forceinline__ void load_val2(const float* p, float& a,
+                                          float& b) {
+  const float2 v = ell_load(reinterpret_cast<const float2*>(p));
+  a = v.x;
+  b = v.y;
 }
-__device__ __forceinline__ float2 load_val2(const __nv_bfloat16* p) {
+__device__ __forceinline__ void load_val2(const __nv_bfloat16* p, float& a,
+                                          float& b) {
   const unsigned w = ell_load(reinterpret_cast<const unsigned*>(p));
-  return make_float2(__uint_as_float(w << 16),
-                     __uint_as_float(w & 0xffff0000u));
+  a = __uint_as_float(w << 16);
+  b = __uint_as_float(w & 0xffff0000u);
 }
-__device__ __forceinline__ float2 load_val2(const int8_t* p) {
+__device__ __forceinline__ void load_val2(const int8_t* p, float& a,
+                                          float& b) {
   const char2 q = ell_load(reinterpret_cast<const char2*>(p));
-  return make_float2((float)(signed char)q.x, (float)(signed char)q.y);
+  a = (float)(signed char)q.x;
+  b = (float)(signed char)q.y;
+}
+__device__ __forceinline__ void load_val2(const int8_t* p, int& a, int& b) {
+  const char2 q = ell_load(reinterpret_cast<const char2*>(p));
+  a = (int)(signed char)q.x;
+  b = (int)(signed char)q.y;
 }
 
 // One 16-byte piece of a dense row, through the read-only path.
@@ -251,6 +296,54 @@ __device__ __forceinline__ void fma_piece(float* acc, float v, uint4 d,
   acc[6] = fmaf(v, __uint_as_float(d.w << 16), acc[6]);
   acc[7] = fmaf(v, __uint_as_float(d.w & 0xffff0000u), acc[7]);
 }
+// acc[e] += v * piece[e] over 16 int8 columns, in int32: each byte is
+// sign-extended in place (one bit-field extract), no float.
+__device__ __forceinline__ void fma_piece(int* acc, int v, uint4 d,
+                                          const int8_t*) {
+  const unsigned w[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc[4 * i + b] += v * (int)(signed char)(w[i] >> (8 * b));
+}
+
+// A piece's kCols sums to the output row at o, cache-streaming
+// (evict-first): f32 as float4s, bf16 rounded (nearest even) and packed two
+// to a word, int32 as int4s.
+template <int kCols>
+__device__ __forceinline__ void store_piece(float* o, const float* acc) {
+#pragma unroll
+  for (int q = 0; q < kCols / 4; ++q)
+    __stcs(reinterpret_cast<float4*>(o) + q,
+           make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                       acc[4 * q + 3]));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+template <int kCols>
+__device__ __forceinline__ void store_piece(__nv_bfloat16* o,
+                                            const float* acc) {
+  static_assert(kCols == 4 || kCols == 8, "a bf16 store of f32 sums");
+  if constexpr (kCols == 4) {
+    __stcs(reinterpret_cast<uint2*>(o),
+           make_uint2(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3])));
+  } else {
+    __stcs(reinterpret_cast<uint4*>(o),
+           make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
+                      pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7])));
+  }
+}
+template <int kCols>
+__device__ __forceinline__ void store_piece(int* o, const int* acc) {
+#pragma unroll
+  for (int q = 0; q < kCols / 4; ++q)
+    __stcs(reinterpret_cast<int4*>(o) + q,
+           make_int4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                     acc[4 * q + 3]));
+}
 
 // Rows per aggregation CTA, all inside one row block: one per lane group,
 // or the whole row block when the groups do not divide it.
@@ -261,18 +354,18 @@ __host__ __device__ int agg_rows_per_cta(int block_rows, int groups) {
 // One CTA: n_rows rows of one row block x one column slab (blockIdx.y,
 // slab_cols wide, the last one narrower).  Lane group gi (`group` lanes,
 // blockDim.x / group groups) takes rows gi, gi + groups, ...; lane gl of
-// it pieces gl, gl + group, ... of the slab row.
-template <typename V, bool kSched>
-__global__ void __launch_bounds__(kThreads, kAggBlocksPerSM)
+// it pieces gl, gl + group, ... of the slab row.  V: the values, D: the
+// dense operand, O: the output.
+template <typename V, typename D, typename O, bool kSched>
+__global__ void __launch_bounds__(kThreads, kAggBlocks<O>)
     ell_aggregate_kernel(
     const int* __restrict__ cols, const V* __restrict__ vals,
-    const float* __restrict__ scales, const Dense<V>* __restrict__ dense,
-    float* __restrict__ out, int tau, int K, int F, int slab_cols, int group,
+    const float* __restrict__ scales, const D* __restrict__ dense,
+    O* __restrict__ out, int tau, int K, int F, int slab_cols, int group,
     int n_rows, int block_rows, int block_k, int kb_shift, bool pairs,
     const unsigned* __restrict__ tile_bitmaps, int n_kb) {
-  using T = Dense<V>;
-  constexpr int kCols = Piece<T>::kCols;
-  constexpr int kOut = kCols / 4;  // float4 stores per piece
+  using A = Acc<O>;
+  constexpr int kCols = Piece<D>::kCols;
   extern __shared__ unsigned bitmap[];
   const int64_t r0 = (int64_t)blockIdx.x * n_rows;
   const int rb = (int)(r0 / block_rows);
@@ -296,18 +389,18 @@ __global__ void __launch_bounds__(kThreads, kAggBlocksPerSM)
     const int* crow = cols + r * tau;
     const V* vrow = vals + r * tau;
     for (int p = gl; p < pieces; p += group) {
-      const T* dcol = dense + c0 + p * kCols;
-      float acc[kCols];
+      const D* dcol = dense + c0 + p * kCols;
+      A acc[kCols];
 #pragma unroll
-      for (int e = 0; e < kCols; ++e) acc[e] = 0.f;
+      for (int e = 0; e < kCols; ++e) acc[e] = 0;
       for (int t0 = 0; t0 < tau; t0 += kAggBatch) {
         // decode: each lane of the group reads the same slots
         int c[kAggBatch];
-        float v[kAggBatch];
+        A v[kAggBatch];
 #pragma unroll
         for (int j = 0; j < kAggBatch; ++j) {
           c[j] = -1;
-          v[j] = 0.f;
+          v[j] = 0;
         }
         if (pairs) {  // tau even: slot pairs in one load each
 #pragma unroll
@@ -315,18 +408,16 @@ __global__ void __launch_bounds__(kThreads, kAggBlocksPerSM)
             if (t0 + j < tau) {
               const int2 cc =
                   ell_load(reinterpret_cast<const int2*>(crow + t0 + j));
-              const float2 vv = load_val2(vrow + t0 + j);
+              load_val2(vrow + t0 + j, v[j], v[j + 1]);
               c[j] = cc.x;
               c[j + 1] = cc.y;
-              v[j] = vv.x;
-              v[j + 1] = vv.y;
             }
         } else {
 #pragma unroll
           for (int j = 0; j < kAggBatch; ++j)
             if (t0 + j < tau) {
               c[j] = ell_load(crow + t0 + j);
-              v[j] = load_val(vrow + t0 + j);
+              load_val(vrow + t0 + j, v[j]);
             }
         }
         // every gather of the batch before its FMAs; the sparse grid's
@@ -344,15 +435,13 @@ __global__ void __launch_bounds__(kThreads, kAggBlocksPerSM)
           if (kSched && keep)
             keep = tile_listed(bitmap, kb_shift >= 0 ? c[j] >> kb_shift
                                                      : c[j] / block_k);
-          if constexpr (!std::is_same<V, float>::value) v[j] *= scale;
+          if constexpr (!std::is_same<V, float>::value &&
+                        std::is_same<A, float>::value)
+            v[j] *= scale;
           if (keep) fma_piece(acc, v[j], d[j], dcol);
         }
       }
-      float4* o = reinterpret_cast<float4*>(out + r * F + c0 + p * kCols);
-#pragma unroll
-      for (int q = 0; q < kOut; ++q)
-        __stcs(o + q, make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
-                                  acc[4 * q + 3]));
+      store_piece<kCols>(out + r * F + c0 + p * kCols, acc);
     }
   }
 }
@@ -780,13 +869,13 @@ cudaError_t allow_smem(Kernel kernel, int static_bytes, int dyn_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
 }
 
-template <typename V, bool kSched>
+template <typename V, typename D, typename O, bool kSched>
 int launch_aggregate(const int* cols, const void* vals, const float* scales,
-                     const void* dense, float* out,
+                     const void* dense, void* out,
                      const unsigned* tile_bitmaps, int R, int tau, int K,
                      int F, int block_rows, int block_k, int slab_cols,
                      cudaStream_t stream) {
-  constexpr int kCols = Piece<Dense<V>>::kCols;
+  constexpr int kCols = Piece<D>::kCols;
   // 16-byte pieces: rows, slabs and both pointers on 16-byte boundaries
   if (F % kCols != 0 || slab_cols <= 0 || slab_cols % kCols != 0 ||
       R % block_rows != 0 ||
@@ -795,7 +884,7 @@ int launch_aggregate(const int* cols, const void* vals, const float* scales,
     return (int)cudaErrorInvalidValue;
   const int n_kb = kSched ? K / block_k : 0;
   const int dyn = kSched ? bitmap_bytes(n_kb) : 0;
-  cudaError_t e = allow_smem(ell_aggregate_kernel<V, kSched>, 0, dyn);
+  cudaError_t e = allow_smem(ell_aggregate_kernel<V, D, O, kSched>, 0, dyn);
   if (e != cudaSuccess) return (int)e;
   const int group = slab_cols / kCols < kMaxGroup ? slab_cols / kCols
                                                   : kMaxGroup;
@@ -813,34 +902,44 @@ int launch_aggregate(const int* cols, const void* vals, const float* scales,
                      (reinterpret_cast<uintptr_t>(vals) &
                       (2 * sizeof(V) - 1)) == 0;
   dim3 grid(R / n_rows, (F + slab_cols - 1) / slab_cols);
-  ell_aggregate_kernel<V, kSched><<<grid, threads, dyn, stream>>>(
-      cols, static_cast<const V*>(vals), scales,
-      static_cast<const Dense<V>*>(dense), out, tau, K, F, slab_cols, group,
-      n_rows, block_rows, block_k, kb_shift, pairs, tile_bitmaps, n_kb);
+  ell_aggregate_kernel<V, D, O, kSched><<<grid, threads, dyn, stream>>>(
+      cols, static_cast<const V*>(vals), scales, static_cast<const D*>(dense),
+      static_cast<O*>(out), tau, K, F, slab_cols, group, n_rows, block_rows,
+      block_k, kb_shift, pairs, tile_bitmaps, n_kb);
   return (int)cudaGetLastError();
 }
 
+constexpr int type_pair(int vtype, int otype) { return vtype * 3 + otype; }
+
+// The instantiation for (vtype, otype), launched.
 template <bool kSched>
-int aggregate(int vtype, const int* cols, const void* vals,
-              const float* scales, const void* dense, float* out,
+int aggregate(int vtype, int otype, const int* cols, const void* vals,
+              const float* scales, const void* dense, void* out,
               const unsigned* tile_bitmaps, int R, int tau, int K, int F,
               int block_rows, int block_k, int slab_cols,
               cudaStream_t stream) {
-  // scales go with int8 values and only with them
+  // scales go with int8 values beside a bf16 operand and only with them
   if ((vtype == kI8) != (scales != nullptr)) return (int)cudaErrorInvalidValue;
-  switch (vtype) {
-    case kF32:
-      return launch_aggregate<float, kSched>(
-          cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, slab_cols, stream);
-    case kBF16:
-      return launch_aggregate<__nv_bfloat16, kSched>(
-          cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, slab_cols, stream);
-    case kI8:
-      return launch_aggregate<int8_t, kSched>(
-          cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
-          block_rows, block_k, slab_cols, stream);
+  const auto run = [&](auto launch) {
+    return launch(cols, vals, scales, dense, out, tile_bitmaps, R, tau, K, F,
+                  block_rows, block_k, slab_cols, stream);
+  };
+  using BF = __nv_bfloat16;
+  switch (type_pair(vtype, otype)) {
+    case type_pair(kF32, kOutF32):
+      return run(launch_aggregate<float, float, float, kSched>);
+    case type_pair(kF32, kOutBF16):
+      return run(launch_aggregate<float, float, BF, kSched>);
+    case type_pair(kBF16, kOutF32):
+      return run(launch_aggregate<BF, BF, float, kSched>);
+    case type_pair(kBF16, kOutBF16):
+      return run(launch_aggregate<BF, BF, BF, kSched>);
+    case type_pair(kI8, kOutF32):
+      return run(launch_aggregate<int8_t, BF, float, kSched>);
+    case type_pair(kI8, kOutBF16):
+      return run(launch_aggregate<int8_t, BF, BF, kSched>);
+    case type_pair(kI8Exact, kOutI32):
+      return run(launch_aggregate<int8_t, int8_t, int, kSched>);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -919,28 +1018,28 @@ const char* fv_error_string(int code) {
 }
 
 // dense: (K, F) with F a whole number of 16-byte pieces and 16-byte
-// aligned, like out (R, F) f32; slab_cols: slab_width in the Python
-// wrapper, a whole number of pieces.
+// aligned, like out (R, F) of the otype; slab_cols: slab_width in the
+// Python wrapper, a whole number of pieces.
 int fv_spmm_dense_grid(const int* cols, const void* vals, const float* scales,
-                       const void* dense, float* out, int R, int tau, int K,
+                       const void* dense, void* out, int R, int tau, int K,
                        int F, int block_rows, int block_k, int slab_cols,
-                       int vtype, void* stream) {
-  return aggregate<false>(vtype, cols, vals, scales, dense, out, nullptr, R,
-                          tau, K, F, block_rows, block_k, slab_cols,
-                          (cudaStream_t)stream);
+                       int vtype, int otype, void* stream) {
+  return aggregate<false>(vtype, otype, cols, vals, scales, dense, out,
+                          nullptr, R, tau, K, F, block_rows, block_k,
+                          slab_cols, (cudaStream_t)stream);
 }
 
 // tile_bitmaps: (R / block_rows, ceil(K / block_k / 32)) words, bit kb of
 // row rb set when row block rb counts k-tile kb (schedule_tile_bitmaps in
 // repro_torch/kernels/flexvector_spmm.py, built once per graph).
 int fv_spmm_sparse_grid(const int* cols, const void* vals,
-                        const float* scales, const void* dense, float* out,
+                        const float* scales, const void* dense, void* out,
                         const unsigned* tile_bitmaps, int R, int tau, int K,
                         int F, int block_rows, int block_k, int slab_cols,
-                        int vtype, void* stream) {
-  return aggregate<true>(vtype, cols, vals, scales, dense, out, tile_bitmaps,
-                         R, tau, K, F, block_rows, block_k, slab_cols,
-                         (cudaStream_t)stream);
+                        int vtype, int otype, void* stream) {
+  return aggregate<true>(vtype, otype, cols, vals, scales, dense, out,
+                         tile_bitmaps, R, tau, K, F, block_rows, block_k,
+                         slab_cols, (cudaStream_t)stream);
 }
 
 // slot_group / slot_start / slot_ids (n_chunks chunks): column_slots in

@@ -65,7 +65,7 @@ def aggregation_args(
         operands.cols, vals, dense, plan.block_rows, plan.block_k, block_f
     )
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
-              block_f=block_f)
+              block_f=block_f, out_dtype=plan.out_dtype)
     suffix = ""
     if scales is not None:
         kw["scales"], suffix = scales, "_scaled"
@@ -86,7 +86,13 @@ def sub_row_products(
     Each bounded (sub-)row times the dense operand, *before* the
     partial-sum fold.  The plan must already be resolved.  ``scales``
     carries the per-row-block scales of int8 ``vals``; the reference impl
-    dequantizes (or widens bf16 values) and gathers in f32.
+    dequantizes (or widens bf16 values) and gathers in f32.  Its output
+    dtype is the reference's gather product's: bf16 where the values and
+    the operand are both bf16, else f32, and int32 for integer ones.  It
+    sums in f32 (int32) and casts once: bf16 values beside a bf16 operand
+    give the f32 sum of their exact products rounded to bf16, as the
+    reference's jitted gather does.  It does not read ``plan.out_dtype``
+    (nor does the reference's); the kernel impls store it.
     """
     impl = plan.effective_impl
     if impl is None:
@@ -96,7 +102,13 @@ def sub_row_products(
             vals = quant.dequantize_values(vals, scales, plan.block_rows)
         elif plan.precision != "f32":
             vals = vals.to(torch.float32)
-        return spmm_ell_ref(operands.cols, vals, dense)
+        if dense.dtype.is_floating_point:   # f32 unless both are bf16
+            acc = torch.float32
+            out_dtype = dense.dtype if vals.dtype == dense.dtype else acc
+        else:
+            acc = out_dtype = torch.int32
+        return spmm_ell_ref(operands.cols, vals, dense,
+                            out_dtype=acc).to(out_dtype)
     name, args, kw, (r, f) = aggregation_args(plan, operands, vals, dense,
                                               scales)
     return fv.KERNELS[name](*args, **kw)[:r, :f]
@@ -108,8 +120,13 @@ def prepare_precision(
     """``(vals, scales, dense)`` in their storage dtypes for the plan's
     precision: values as :meth:`SpmmOperands.values_for` gives them
     (``scales`` per ``plan.block_rows`` block for int8, else ``None``) and
-    the dense operand cast to bf16 under bf16/int8."""
+    the dense operand cast to bf16 under bf16/int8.  Under f32 the dense
+    operand keeps its dtype and the values are cast to it, as the
+    reference's f32 branch does: bf16 values beside a bf16 operand, int8
+    beside an int8 one (the kernels' exact int32 product)."""
     vals, scales = operands.values_for(plan.precision, plan.block_rows)
+    if plan.precision == "f32" and vals.dtype != dense.dtype:
+        vals = operands.values_as(dense.dtype)
     return vals, scales, quant.cast_dense(dense, plan.precision)
 
 

@@ -144,8 +144,9 @@ def fused_args(
     ``(name, args, kwargs, (r, f_out))`` with operands padded to block
     multiples (``x`` and ``w`` through :func:`fv.pad_fused_operands`),
     ``name`` the :data:`fv.KERNELS` entry (``*_scaled`` for int8 values), the kernel's
-    slot lists in ``kwargs["slots"]`` at every precision, and ``(r,
-    f_out)`` the unpadded output shape."""
+    slot lists in ``kwargs["slots"]`` at every precision, ``plan.out_dtype``
+    in ``kwargs["out_dtype"]``, and ``(r, f_out)`` the unpadded output
+    shape."""
     cols = operands.cols
     vals, scales = operands.values_for(plan.precision, plan.block_rows)
     w, b, x_cast, xw_cast = _prepare_fused_weights(plan, layer, w_block_rows)
@@ -165,7 +166,7 @@ def fused_args(
         b = F.pad(b, (0, f_out_pad - f_out))
     args = (cols.contiguous(), vals.contiguous(), x, w, b.contiguous())
     kw = dict(block_rows=plan.block_rows, block_k=plan.block_k,
-              block_f=plan.block_f, k_real=k,
+              block_f=plan.block_f, k_real=k, out_dtype=plan.out_dtype,
               slots=_column_slots(operands, k_pad))
     suffix = ""
     if scales is not None:

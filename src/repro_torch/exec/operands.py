@@ -79,7 +79,7 @@ class SpmmOperands:
         operand, precision and block size.
         """
         if precision in ("f32", "bf16"):
-            return self._values_as(quant.storage_dtype(precision)), None
+            return self.values_as(quant.storage_dtype(precision)), None
         quant.validate_precision(precision)
 
         def build():
@@ -88,13 +88,14 @@ class SpmmOperands:
             scales = quant.align_scales(self.scales, self.scale_block_rows,
                                         block_rows)
             if scales is None:
-                return self._values_as(torch.bfloat16), None
+                return self.values_as(torch.bfloat16), None
             return self.vals, scales.to(torch.float32)
 
         return self.memo(("int8_values", block_rows), build)
 
-    def _values_as(self, dtype: torch.dtype) -> torch.Tensor:
-        """The values in ``dtype``, int8 storage dequantized first."""
+    def values_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The values in ``dtype``, int8 storage dequantized first, built
+        once per dtype."""
         def build():
             if self.precision == "int8":
                 return quant.dequantize_values(
@@ -111,7 +112,7 @@ class SpmmOperands:
                 return a.detach().cpu().numpy()
 
             ell = self.ell
-            vals = host(self._values_as(torch.float32))
+            vals = host(self.values_as(torch.float32))
             if ell is not None:
                 return np.asarray(ell.cols), vals, np.asarray(ell.row_map)
             return host(self.cols), vals, host(self.row_map)

@@ -18,6 +18,8 @@ import dataclasses
 import warnings
 from typing import Optional
 
+import torch
+
 from repro_torch.dist.topology import axis_sizes
 from repro_torch.exec import quant
 
@@ -29,6 +31,9 @@ IMPL_NAMES = {
 }
 VALID_IMPLS = tuple(IMPL_NAMES.values())
 VALID_LAYOUTS = ("replicated", "row_sharded")
+#: The ``out_dtype`` values a plan takes (None: the kernels' default, int32
+#: beside an integer dense operand, else f32).
+VALID_OUT_DTYPES = (None, torch.float32, torch.bfloat16, torch.int32)
 
 # One-time warning registry: reasons already surfaced to the user.
 _DEGRADE_WARNED: set = set()
@@ -71,6 +76,13 @@ class SpmmPlan:
     its F slice; the output stays feature-sharded).  ``shard_split`` places
     the sub-row boundaries (nnz-weighted or uniform).
 
+    ``out_dtype`` is the kernels' accumulator override (the reference's
+    name): the dtype the aggregation kernels store (f32 or bf16 beside a
+    float dense operand, int32 beside an int8 one) and the fused kernels
+    round their f32 sums to (f32 or bf16).  ``None`` keeps the kernels'
+    default.  A pair the kernels do not compute raises at launch, naming
+    it.  As in the reference, the ``reference`` impl does not read it.
+
     ``effective_impl``/``degraded_reason`` are the resolution record; they
     are ``None`` on an unresolved plan.
     """
@@ -80,6 +92,7 @@ class SpmmPlan:
     block_k: int = 128
     block_f: int = 128
     hot_k_first: bool = True          # sparse-grid schedule: hot k-tiles lead
+    out_dtype: Optional[torch.dtype] = None  # kernel accumulator override
     mesh: Optional[object] = None
     data_axis: str = "data"
     shard_split: str = "nnz"          # sub-row split: nnz-weighted | uniform
@@ -108,6 +121,11 @@ class SpmmPlan:
                     f"(expected one of {VALID_LAYOUTS})"
                 )
         quant.validate_precision(self.precision)
+        if self.out_dtype not in VALID_OUT_DTYPES:
+            raise ValueError(
+                f"unknown out_dtype: {self.out_dtype} (expected one of "
+                f"{VALID_OUT_DTYPES})"
+            )
 
     # -- placement ----------------------------------------------------------
 

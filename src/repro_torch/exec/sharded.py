@@ -43,6 +43,13 @@ nnz-balanced boundaries do not fall on scale blocks.
 
 Every dispatch records the reference's ledger entries, with the
 reference's global sizes, so each rank's ledger equals the reference's.
+
+The fold and its collective run in the sub-row output's dtype, as the
+reference's ``psum`` does: f32 by default, bf16 under
+``out_dtype=torch.bfloat16`` (the partials are rounded to bf16 by the
+kernels and summed in bf16), int32 for int8 values beside an int8
+operand (exact).  gloo reduces all three on the CPU; no collective is
+widened.
 """
 
 from __future__ import annotations
@@ -173,7 +180,8 @@ def execute_sharded(plan: SpmmPlan, operands: SpmmOperands,
     ``plan.feature_axis``): this rank's shard of the result (the module's
     shard contract), for every impl.  ``dense`` is this rank's row slice
     under ``dense_layout="row_sharded"``, else the whole operand."""
-    from repro_torch.exec.dispatch import record_spmm_dram, sub_row_products
+    from repro_torch.exec.dispatch import (prepare_precision,
+                                           record_spmm_dram, sub_row_products)
 
     plan = plan.resolve(schedulable=operands.schedulable)
     where = placement(plan, operands)
@@ -202,6 +210,6 @@ def execute_sharded(plan: SpmmPlan, operands: SpmmOperands,
             dense = F.pad(dense, (0, f_pad_m - f))
         dense = dense[:, where.j * f_local:(where.j + 1) * f_local]
         dense = dense.contiguous()
-    vals, scales = shard.values_for(plan.precision, plan.block_rows)
+    vals, scales, dense = prepare_precision(plan, shard, dense)
     sub = sub_row_products(plan, shard, vals, dense, scales)
     return epilogue(sub, shard.row_map, where)

@@ -16,17 +16,30 @@ rounding of ``X W + b``):
   listed in ``kb_ids`` (``plan_fused_k_schedule``; ``-1`` = no-op step).
 
 Storage types, as ``repro.exec`` produces them (any other combination
-raises):
+raises, naming it):
 
-* f32 values, f32 dense (or f32 ``x``/``w``);
+* f32 values, f32 dense (or f32 ``x``/``w``); the aggregation kernels
+  also take a bf16 dense operand beside f32 values, which the wrapper
+  widens to f32 (exact) before it launches the f32 instantiation;
 * bf16 values, bf16 dense (bf16 ``x``/``w``, ``cast_xw=torch.bfloat16``);
 * int8 values with one f32 scale per row block (``scales``), bf16 dense
-  (bf16 ``x``/``w``, ``cast_xw=torch.bfloat16``).
+  (bf16 ``x``/``w``, ``cast_xw=torch.bfloat16``);
+* aggregation only: int8 values without scales, int8 dense, summed and
+  stored in int32 with integer arithmetic, so the answer is exact (the
+  reference's integer accumulator, ``_acc_dtype``).
 
-Biases are f32 and every sum is f32.  An int8 launch counts under the
+``out_dtype`` is the reference's accumulator override.  Its default is
+int32 beside an int8 dense operand, else f32.  The aggregation kernels
+store f32 or bf16 beside float operands (bf16 rounds each finished f32
+sum once, in the kernel) and int32 beside int8 ones.  The fused kernels
+sum into f32 with atomics, so under ``out_dtype=torch.bfloat16`` their
+wrappers round the finished f32 output to bf16 once.  Biases are f32 and
+every float sum is f32.  An int8 launch with scales counts under the
 kernel's name with ``_scaled`` appended (the TPU kernels' ``_scaled``
-variants), a bf16 launch under the kernel's own name;
-:data:`PRECISION_LAUNCHES` counts them apart.
+variants); a bf16 or an exact int8 launch counts under the kernel's own
+name.  :data:`PRECISION_LAUNCHES` counts them apart by the values'
+precision, with ``->bf16`` or ``->int32`` appended for a store other
+than f32 (``spmm_ell_dense_grid@int8->int32``).
 
 On CUDA tensors a wrapper launches its kernel from
 ``csrc/flexvector_spmm.cu`` (built at first use) and counts the launch in
@@ -61,20 +74,43 @@ LAUNCHES: Dict[str, int] = {
     "spmm_ell_fused_sparse_grid_scaled": 0,
 }
 
-# Value types: the C interface's code and the precision's name.
-_VTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16",
-              torch.int8: "int8"}
+# Value types of the C interface by (values, dense operand or x / w)
+# dtype: the code and the precision's name.  Code 2 takes scales, code 3
+# none.
+_VTYPE = {
+    (torch.float32, torch.float32): (0, "f32"),
+    (torch.bfloat16, torch.bfloat16): (1, "bf16"),
+    (torch.int8, torch.bfloat16): (2, "int8"),
+    (torch.int8, torch.int8): (3, "int8"),
+}
+# Store types of the aggregation kernels' output: the C interface's code.
+_OTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_STORE_NAME = {torch.bfloat16: "bf16", torch.int32: "int32"}
+
+#: The aggregation kernels' instantiations beyond each precision's f32
+#: store, by :data:`PRECISION_LAUNCHES` suffix and the name they count
+#: under: the bf16 store of f32, bf16 and scaled int8 values, and the
+#: exact int8 x int8 -> int32 product.
+STORE_PRECISIONS = {
+    "f32->bf16": "", "bf16->bf16": "", "int8->bf16": "_scaled",
+    "int8->int32": "",
+}
 
 #: The same launches by the precision of the values, ``"<name>@<precision>"``
 #: (a bf16 launch counts under the f32 kernel's name in :data:`LAUNCHES`
-#: and apart from it only here).
+#: and apart from it only here), ``->bf16`` / ``->int32`` appended for the
+#: aggregation kernels' other stores.
 PRECISION_LAUNCHES: Dict[str, int] = {
     f"{name}@{precision}": 0
     for name in LAUNCHES
     for precision in (("int8",) if name.endswith("_scaled")
                       else ("f32", "bf16"))
 }
+PRECISION_LAUNCHES.update({
+    f"{base}{suffix}@{precision}": 0
+    for base in ("spmm_ell_dense_grid", "spmm_ell_sparse_grid")
+    for precision, suffix in STORE_PRECISIONS.items()
+})
 
 #: Rows of ``X W + b`` one CTA of the fused kernels forms; the fused slot
 #: lists (:func:`column_slots`) group ELL slots by it.  Must equal
@@ -113,11 +149,11 @@ def reset_launches() -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # cols, vals, scales, dense, out, R, tau, K, F, BR, BK, slab_cols, vtype,
-    # stream
-    "fv_spmm_dense_grid": [_P] * 5 + [_I] * 8 + [_P],
+    # otype, stream
+    "fv_spmm_dense_grid": [_P] * 5 + [_I] * 9 + [_P],
     # cols, vals, scales, dense, out, tile_bitmaps,
-    # R, tau, K, F, BR, BK, slab_cols, vtype, stream
-    "fv_spmm_sparse_grid": [_P] * 6 + [_I] * 8 + [_P],
+    # R, tau, K, F, BR, BK, slab_cols, vtype, otype, stream
+    "fv_spmm_sparse_grid": [_P] * 6 + [_I] * 9 + [_P],
     # cols, vals, scales, x, w, b, out, slot_group, slot_start, slot_ids,
     # n_chunks, tau, K, F_in, F_out, ldw, k_real, BR, BK, vtype, stream
     "fv_fused_dense_grid": [_P] * 10 + [_I] * 10 + [_P],
@@ -142,24 +178,31 @@ def _lib() -> ctypes.CDLL:
     return _BOUND
 
 
-def _launch(name: str, vals: torch.Tensor, fn: str, device: torch.device,
+def _launch(name: str, precision: str, fn: str, device: torch.device,
             *args) -> None:
     """Call C function ``fn`` on ``device``'s current stream with ``args``
-    and the value-type code of ``vals``; count it under kernel ``name``
-    (``_scaled`` appended for int8 values)."""
+    (type codes included); count it under kernel ``name`` and under
+    ``name@precision``."""
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]   # None passes as a null pointer
-        rc = getattr(lib, fn)(*ptrs, _VTYPE[vals.dtype], stream)
-    if vals.dtype == torch.int8:
-        name += "_scaled"
+        rc = getattr(lib, fn)(*ptrs, stream)
     if rc != 0:
         msg = lib.fv_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed ({rc}: {msg})")
     LAUNCHES[name] += 1
-    PRECISION_LAUNCHES[f"{name}@{_PRECISION[vals.dtype]}"] += 1
+    PRECISION_LAUNCHES[f"{name}@{precision}"] += 1
+
+
+def _value_type(vals: torch.Tensor, operand: torch.Tensor) -> Tuple[int, str,
+                                                                    str]:
+    """``(code, name suffix, precision)`` of values beside a dense operand
+    (or fused ``x``) of ``operand``'s dtype: ``_scaled`` for int8 values
+    with scales."""
+    code, precision = _VTYPE[(vals.dtype, operand.dtype)]
+    return code, "_scaled" if code == 2 else "", precision
 
 
 # -- argument checks -----------------------------------------------------------
@@ -192,29 +235,83 @@ def _no_autograd(name: str, *tensors) -> None:
             f"under torch.no_grad()")
 
 
-def _check_ell(cols, vals, scales) -> torch.device:
+def _check_ell(cols, vals, scales, dense=None) -> torch.device:
     """ELL table + int8 scales; returns the device.  ``scales`` goes with
-    int8 values and only with them."""
+    int8 values, and int8 values need them unless ``dense`` (the
+    aggregation's operand) is int8 too."""
     dev = cols.device if isinstance(cols, torch.Tensor) else None
     _check_tensor("cols", cols, torch.int32, 2, dev)
-    _check_tensor("vals", vals, tuple(_VTYPE), 2, dev)
+    _check_tensor("vals", vals, (torch.float32, torch.bfloat16, torch.int8),
+                  2, dev)
     if vals.shape != cols.shape:
         raise ValueError(f"vals {tuple(vals.shape)} != cols {tuple(cols.shape)}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if vals.dtype == torch.int8:
+    exact = isinstance(dense, torch.Tensor) and dense.dtype == torch.int8
+    if vals.dtype == torch.int8 and not exact:
         if scales is None:
-            raise TypeError("int8 vals need scales= (one f32 per row block)")
+            raise TypeError("int8 vals need scales= (one f32 per row block), "
+                            "or an int8 dense operand for the exact int32 "
+                            "product")
         _check_tensor("scales", scales, torch.float32, 1, dev)
     elif scales is not None:
-        raise TypeError(f"scales= goes with int8 vals, not {vals.dtype}")
+        raise TypeError(f"scales= goes with int8 vals beside a bf16 operand, "
+                        f"not {vals.dtype} vals beside "
+                        f"{getattr(dense, 'dtype', 'x / w')}")
     return dev
 
 
-def _operand_dtype(vals: torch.Tensor) -> torch.dtype:
+def _operand_dtype(vals: torch.Tensor, scales=None) -> torch.dtype:
     """The dense operand's (or fused ``x``/``w``'s) dtype for these values:
-    f32 beside f32 values, bf16 beside bf16 or int8 values."""
+    f32 beside f32 values, bf16 beside bf16 or scaled int8 values, int8
+    beside int8 values without scales."""
+    if vals.dtype == torch.int8 and scales is None:
+        return torch.int8
     return torch.float32 if vals.dtype == torch.float32 else torch.bfloat16
+
+
+def _dense_operand(vals: torch.Tensor, scales, dense,
+                   dev: torch.device) -> torch.Tensor:
+    """The aggregation's dense operand as its kernel takes it beside
+    ``vals``: a bf16 operand beside f32 values is widened to f32 here
+    (exact: every bf16 is an f32), so it runs the f32 instantiation, as the
+    reference's kernels widen it to their f32 accumulator on load; any
+    other dtype must be :func:`_operand_dtype`'s."""
+    if (vals.dtype == torch.float32 and isinstance(dense, torch.Tensor)
+            and dense.dtype == torch.bfloat16):
+        dense = dense.float()
+    _check_tensor("dense", dense, _operand_dtype(vals, scales), 2, dev)
+    return dense
+
+
+def _aggregation_store(name: str, dense: torch.Tensor,
+                       out_dtype) -> torch.dtype:
+    """The aggregation kernels' output dtype for ``out_dtype`` beside
+    ``dense``: int32 beside an int8 operand (the only store it has), f32
+    (the default) or bf16 beside a float one; anything else raises."""
+    integer = not dense.dtype.is_floating_point
+    default = torch.int32 if integer else torch.float32
+    allowed = (torch.int32,) if integer else (torch.float32, torch.bfloat16)
+    store = default if out_dtype is None else out_dtype
+    if store not in allowed:
+        raise TypeError(
+            f"{name}: out_dtype={out_dtype} is not computed beside a "
+            f"{dense.dtype} dense operand; its kernel stores "
+            f"{', '.join(map(str, allowed))}")
+    return store
+
+
+def _fused_store(name: str, out_dtype) -> Optional[torch.dtype]:
+    """``None`` for the fused kernels' f32 output, bf16 where the wrapper
+    rounds the finished f32 output once; anything else raises."""
+    if out_dtype in (None, torch.float32):
+        return None
+    if out_dtype == torch.bfloat16:
+        return out_dtype
+    raise TypeError(
+        f"{name}: out_dtype={out_dtype} is not computed: the fused kernels "
+        "sum into f32 with atomics and store f32, or bf16 by rounding the "
+        "finished f32 output once")
 
 
 def _check_padded(r: int, k: int, f: int, block_rows: int, block_k: int,
@@ -226,7 +323,7 @@ def _check_padded(r: int, k: int, f: int, block_rows: int, block_k: int,
 def _check_fused(cols, vals, x, w, b, block_rows, block_k, block_f, k_real,
                  scales, cast_xw):
     dev = _check_ell(cols, vals, scales)
-    want = _operand_dtype(vals)
+    want = _operand_dtype(vals, scales)
     _check_tensor("x", x, want, 2, dev)
     _check_tensor("w", w, want, 2, dev)
     _check_tensor("b", b, torch.float32, 2, dev)
@@ -455,55 +552,70 @@ def column_slots(cols, n_dense_rows: int):
 
 
 def _aggregate(name, fn, cols, vals, scales, dense, tile_bitmaps,
-               block_rows, block_k) -> torch.Tensor:
+               block_rows, block_k, store) -> torch.Tensor:
     """Launch aggregation kernel ``fn`` over ``dense``'s columns in 16-byte
-    pieces and L2-sized slabs; returns the (R, F) f32 output."""
+    pieces and L2-sized slabs; returns the (R, F) output in ``store``."""
     r, tau = cols.shape
     k, f = dense.shape
     fa = aligned_width(f, dense.dtype)
     dense = _zero_padded(dense, k, fa)
-    out = torch.empty(r, fa, dtype=torch.float32, device=cols.device)
+    out = torch.empty(r, fa, dtype=store, device=cols.device)
     if r and f:
+        vtype, suffix, precision = _value_type(vals, dense)
+        if store in _STORE_NAME:
+            precision += "->" + _STORE_NAME[store]
         sched = () if tile_bitmaps is None else (tile_bitmaps,)
-        _launch(name, vals, fn, cols.device, cols, vals, scales, dense, out,
-                *sched, r, tau, k, fa, block_rows, block_k,
-                slab_width(k, fa, dense.dtype))
+        _launch(name + suffix, precision, fn, cols.device, cols, vals,
+                scales, dense, out, *sched, r, tau, k, fa, block_rows,
+                block_k, slab_width(k, fa, dense.dtype), vtype,
+                _OTYPE[store])
     return out if fa == f else out[:, :f]
 
 
 def spmm_ell_dense_grid_plain(cols, vals, dense, *, block_rows=128,
-                              block_k=128, block_f=128,
-                              scales=None) -> torch.Tensor:
-    """Plain version of :func:`spmm_ell_dense_grid`: int8 values are
-    dequantized (``float(q) * scale``), every operand widened to f32."""
+                              block_k=128, block_f=128, scales=None,
+                              out_dtype=None) -> torch.Tensor:
+    """Plain version of :func:`spmm_ell_dense_grid`: int8 values with
+    scales are dequantized (``float(q) * scale``); float operands are
+    widened to f32 and summed there, then rounded to ``out_dtype`` once;
+    int8 values beside an int8 operand are summed in int32, exactly."""
     if scales is not None:
         vals = dequantize_rows(vals, scales, block_rows)
     keep = _counted(cols, dense.shape[0])
-    return spmm_ell_ref(torch.where(keep, cols, PAD_COL), vals, dense)
+    acc = torch.float32 if dense.dtype.is_floating_point else torch.int32
+    out = spmm_ell_ref(torch.where(keep, cols, PAD_COL), vals, dense,
+                       out_dtype=acc)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def spmm_ell_dense_grid(
     cols: torch.Tensor,   # (R, tau) int32, PAD_COL = -1 padding
     vals: torch.Tensor,   # (R, tau) float32, bfloat16 or int8
-    dense: torch.Tensor,  # (K, F) float32 (f32 vals) or bfloat16
+    dense: torch.Tensor,  # (K, F) float32 / bfloat16 (f32 vals), bfloat16,
+                          # or int8 (int8 vals without scales)
     *,
     block_rows: int = 128,
     block_k: int = 128,
     block_f: int = 128,
+    out_dtype: Optional[torch.dtype] = None,
     scales: Optional[torch.Tensor] = None,  # int8: (R / BR,) f32 per row block
 ) -> torch.Tensor:
     """Sub-row products ``out[r] = sum_t vals[r,t] dense[cols[r,t]]``, (R, F)
-    f32.
+    in ``out_dtype``: f32 by default, or bf16 (each f32 sum rounded once);
+    int32, exact, for int8 values beside an int8 operand.
 
     The kernel gathers and writes only ``dense``'s own ``F`` columns,
     rounded up to whole 16-byte pieces (:func:`aligned_width`; a row that
     is not one is padded in a copy and the output cut back to ``F``), in
     L2-sized column slabs (:func:`slab_width`).  ``block_f`` only checks
     the padding; the dispatcher passes the real width rounded to 16 bytes.
+    A bf16 ``dense`` beside f32 values is widened to f32 first
+    (:func:`_dense_operand`).
     """
     _no_autograd("spmm_ell_dense_grid", cols, vals, dense, scales)
-    dev = _check_ell(cols, vals, scales)
-    _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
+    dev = _check_ell(cols, vals, scales, dense)
+    dense = _dense_operand(vals, scales, dense, dev)
+    store = _aggregation_store("spmm_ell_dense_grid", dense, out_dtype)
     r = cols.shape[0]
     k, f = dense.shape
     _check_padded(r, k, f, block_rows, block_k, block_f)
@@ -511,9 +623,10 @@ def spmm_ell_dense_grid(
         scales = _block_scales(scales, r, block_rows)
     if dev.type == "cpu":
         return spmm_ell_dense_grid_plain(cols, vals, dense,
-                                         block_rows=block_rows, scales=scales)
+                                         block_rows=block_rows, scales=scales,
+                                         out_dtype=store)
     return _aggregate("spmm_ell_dense_grid", "fv_spmm_dense_grid", cols,
-                      vals, scales, dense, None, block_rows, block_k)
+                      vals, scales, dense, None, block_rows, block_k, store)
 
 
 # -- B2 / B2s: sparse grid --------------------------------------------------------
@@ -521,14 +634,15 @@ def spmm_ell_dense_grid(
 
 def spmm_ell_sparse_grid_plain(cols, vals, dense, tile_bitmaps, *,
                                block_rows=128, block_k=128,
-                               block_f=128, scales=None) -> torch.Tensor:
+                               block_f=128, scales=None,
+                               out_dtype=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_sparse_grid`: each row block counts
     only the ELL slots whose k-tile is set in its bitmap."""
     keep = _counted(cols, dense.shape[0]) & _tile_counted(
         tile_bitmaps, cols, block_rows, block_k)
     return spmm_ell_dense_grid_plain(torch.where(keep, cols, PAD_COL), vals,
                                      dense, block_rows=block_rows,
-                                     scales=scales)
+                                     scales=scales, out_dtype=out_dtype)
 
 
 def spmm_ell_sparse_grid(
@@ -540,14 +654,17 @@ def spmm_ell_sparse_grid(
     block_rows: int = 128,
     block_k: int = 128,
     block_f: int = 128,
+    out_dtype: Optional[torch.dtype] = None,
     scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sub-row products over the (rb, kb) steps of a block-skipping schedule,
     given as :func:`schedule_tile_bitmaps` of its steps; the kernel reads
-    the columns as :func:`spmm_ell_dense_grid`'s does."""
+    the columns, and takes ``out_dtype`` and the operand's dtype, as
+    :func:`spmm_ell_dense_grid`'s does."""
     _no_autograd("spmm_ell_sparse_grid", cols, vals, dense, scales)
-    dev = _check_ell(cols, vals, scales)
-    _check_tensor("dense", dense, _operand_dtype(vals), 2, dev)
+    dev = _check_ell(cols, vals, scales, dense)
+    dense = _dense_operand(vals, scales, dense, dev)
+    store = _aggregation_store("spmm_ell_sparse_grid", dense, out_dtype)
     _check_tensor("tile_bitmaps", tile_bitmaps, torch.int32, 2, dev)
     r = cols.shape[0]
     k, f = dense.shape
@@ -561,9 +678,10 @@ def spmm_ell_sparse_grid(
     if dev.type == "cpu":
         return spmm_ell_sparse_grid_plain(
             cols, vals, dense, tile_bitmaps, block_rows=block_rows,
-            block_k=block_k, block_f=block_f, scales=scales)
+            block_k=block_k, block_f=block_f, scales=scales, out_dtype=store)
     return _aggregate("spmm_ell_sparse_grid", "fv_spmm_sparse_grid", cols,
-                      vals, scales, dense, tile_bitmaps, block_rows, block_k)
+                      vals, scales, dense, tile_bitmaps, block_rows, block_k,
+                      store)
 
 
 # -- B3 / B3s: fused dense grid ---------------------------------------------------
@@ -611,12 +729,13 @@ def _fused_out(slots, r: int, f_out: int, dev: torch.device):
 
 def spmm_ell_fused_dense_grid_plain(cols, vals, x, w, b, *, block_rows=128,
                                     block_k=128, block_f=128, k_real=None,
-                                    scales=None, cast_xw=None,
+                                    out_dtype=None, scales=None, cast_xw=None,
                                     slots=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_fused_dense_grid`: materializes
     ``x @ w + b`` (operands widened to f32, full f32 product, no TF32),
-    zeroes rows >= ``k_real``, rounds to ``cast_xw`` if given, gathers.
-    ``slots`` (the kernel's slot lists) is not needed here."""
+    zeroes rows >= ``k_real``, rounds to ``cast_xw`` if given, gathers in
+    f32 and rounds the result to ``out_dtype`` once.  ``slots`` (the
+    kernel's slot lists) is not needed here."""
     k = x.shape[0]
     k_real = k if k_real is None else k_real
     with full_f32_matmul():
@@ -626,7 +745,7 @@ def spmm_ell_fused_dense_grid_plain(cols, vals, x, w, b, *, block_rows=128,
         xw = xw.to(cast_xw)
     return spmm_ell_dense_grid_plain(
         torch.where(_counted(cols, k), cols, PAD_COL), vals, xw,
-        block_rows=block_rows, scales=scales)
+        block_rows=block_rows, scales=scales, out_dtype=out_dtype)
 
 
 def spmm_ell_fused_dense_grid(
@@ -640,6 +759,7 @@ def spmm_ell_fused_dense_grid(
     block_k: int = 128,
     block_f: int = 128,
     k_real: Optional[int] = None,   # rows of x that are real (rest padding)
+    out_dtype: Optional[torch.dtype] = None,  # f32 (None) or bf16
     scales: Optional[torch.Tensor] = None,  # int8: (R / BR,) f32
     cast_xw: Optional[torch.dtype] = None,  # bf16 under bf16/int8 values
     slots: Optional[Tuple[torch.Tensor, ...]] = None,
@@ -651,8 +771,15 @@ def spmm_ell_fused_dense_grid(
     never written to device memory.  ``slots`` is :func:`column_slots` of
     ``cols`` as int32 tensors on the device, which the kernel needs on CUDA
     (the dispatcher builds it once per graph and ``K``).
+
+    The kernel sums into an f32 output with atomics, so under
+    ``out_dtype=torch.bfloat16`` this wrapper rounds the finished f32
+    output to bf16 once (one extra pass over it).  The reference's kernel
+    adds each k-tile's f32 dot into its bf16 output block instead, rounding
+    at every k-tile, so this answer is the more exact of the two.
     """
     _no_autograd("spmm_ell_fused_dense_grid", cols, vals, x, w, b, scales)
+    round_to = _fused_store("spmm_ell_fused_dense_grid", out_dtype)
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
                                block_f, k_real, scales, cast_xw)
     r, tau = cols.shape
@@ -663,14 +790,16 @@ def spmm_ell_fused_dense_grid(
     if dev.type == "cpu":
         return spmm_ell_fused_dense_grid_plain(
             cols, vals, x, w, b, block_rows=block_rows, k_real=k_real,
-            scales=scales, cast_xw=cast_xw)
+            scales=scales, cast_xw=cast_xw, out_dtype=round_to)
     out, slots = _fused_out(slots, r, f_out, dev)
     x, w, ldw = _fused_operands(x, w)
     if r and f_out:
-        _launch("spmm_ell_fused_dense_grid", vals, "fv_fused_dense_grid",
-                dev, cols, vals, scales, x, w, b, out, *slots, tau, k,
-                x.shape[1], f_out, ldw, k_real, block_rows, block_k)
-    return out
+        vtype, suffix, precision = _value_type(vals, x)
+        _launch("spmm_ell_fused_dense_grid" + suffix, precision,
+                "fv_fused_dense_grid", dev, cols, vals, scales, x, w, b, out,
+                *slots, tau, k, x.shape[1], f_out, ldw, k_real, block_rows,
+                block_k, vtype)
+    return out if round_to is None else out.to(round_to)
 
 
 # -- B4 / B4s: fused sparse grid --------------------------------------------------
@@ -678,8 +807,9 @@ def spmm_ell_fused_dense_grid(
 
 def spmm_ell_fused_sparse_grid_plain(cols, vals, x, w, b, kb_ids, *,
                                      block_rows=128, block_k=128,
-                                     block_f=128, k_real=None, scales=None,
-                                     cast_xw=None, slots=None) -> torch.Tensor:
+                                     block_f=128, k_real=None, out_dtype=None,
+                                     scales=None, cast_xw=None,
+                                     slots=None) -> torch.Tensor:
     """Plain version of :func:`spmm_ell_fused_sparse_grid`: the fused layer
     counting only ELL slots whose k-tile is listed in ``kb_ids``."""
     k = x.shape[0]
@@ -691,7 +821,8 @@ def spmm_ell_fused_sparse_grid_plain(cols, vals, x, w, b, kb_ids, *,
         _tile_of(cols, block_k).clamp(max=max(n_kb - 1, 0))]
     return spmm_ell_fused_dense_grid_plain(
         torch.where(keep, cols, PAD_COL), vals, x, w, b,
-        block_rows=block_rows, k_real=k_real, scales=scales, cast_xw=cast_xw)
+        block_rows=block_rows, k_real=k_real, scales=scales, cast_xw=cast_xw,
+        out_dtype=out_dtype)
 
 
 def spmm_ell_fused_sparse_grid(
@@ -706,6 +837,7 @@ def spmm_ell_fused_sparse_grid(
     block_k: int = 128,
     block_f: int = 128,
     k_real: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
     scales: Optional[torch.Tensor] = None,
     cast_xw: Optional[torch.dtype] = None,
     slots: Optional[Tuple[torch.Tensor, ...]] = None,
@@ -714,8 +846,11 @@ def spmm_ell_fused_sparse_grid(
 
     ``kb_ids`` comes from ``plan_fused_k_schedule``; ``-1`` entries are
     no-op steps (the sharded path pads per-shard schedules with them).
+    ``out_dtype`` as :func:`spmm_ell_fused_dense_grid`'s: bf16 rounds the
+    finished f32 output once, in this wrapper.
     """
     _no_autograd("spmm_ell_fused_sparse_grid", cols, vals, x, w, b, scales)
+    round_to = _fused_store("spmm_ell_fused_sparse_grid", out_dtype)
     dev, k_real = _check_fused(cols, vals, x, w, b, block_rows, block_k,
                                block_f, k_real, scales, cast_xw)
     _check_tensor("kb_ids", kb_ids, torch.int32, 1, dev)
@@ -729,19 +864,21 @@ def spmm_ell_fused_sparse_grid(
         return spmm_ell_fused_sparse_grid_plain(
             cols, vals, x, w, b, kb_ids, block_rows=block_rows,
             block_k=block_k, block_f=block_f, k_real=k_real, scales=scales,
-            cast_xw=cast_xw)
+            cast_xw=cast_xw, out_dtype=round_to)
     out, slots = _fused_out(slots, r, f_out, dev)
     x, w, ldw = _fused_operands(x, w)
     if r and f_out:
-        _launch("spmm_ell_fused_sparse_grid", vals, "fv_fused_sparse_grid",
-                dev, cols, vals, scales, x, w, b, out, *slots, kb_ids,
-                n_steps, tau, k, x.shape[1], f_out, ldw, k_real, block_rows,
-                block_k)
-    return out
+        vtype, suffix, precision = _value_type(vals, x)
+        _launch("spmm_ell_fused_sparse_grid" + suffix, precision,
+                "fv_fused_sparse_grid", dev, cols, vals, scales, x, w, b, out,
+                *slots, kb_ids, n_steps, tau, k, x.shape[1], f_out, ldw,
+                k_real, block_rows, block_k, vtype)
+    return out if round_to is None else out.to(round_to)
 
 
 #: Each kernel's wrapper and plain PyTorch version, by the name it counts
-#: under in :data:`LAUNCHES` (``*_scaled``: the same function, int8 values).
+#: under in :data:`LAUNCHES` (``*_scaled``: the same function, int8 values
+#: with scales).
 KERNELS = {
     "spmm_ell_dense_grid": spmm_ell_dense_grid,
     "spmm_ell_sparse_grid": spmm_ell_sparse_grid,

@@ -42,10 +42,13 @@ def flexvector_spmm(
     grid.  ``precision`` selects the storage width (``exec.quant``
     semantics): bf16 casts the values and the dense operand, int8
     quantizes the values per ``block_rows`` row block and dequantizes on
-    load; either way the kernels accumulate and write f32, and
-    ``out_dtype`` casts that result.  Runs on the card unless ``device``
-    says otherwise.
+    load; either way the kernels accumulate in f32.  Under f32 a bf16
+    ``dense`` stays bf16 beside the f32 values (the kernel wrapper widens
+    it to f32, exactly).  ``out_dtype`` goes on the plan, so the kernel
+    stores it (f32 or bf16; see ``spmm_ell_dense_grid``).  Runs on the
+    card unless ``device`` says otherwise.
     """
+    from repro_torch.core.spmm import dense_operand
     from repro_torch.exec import SpmmOperands, SpmmPlan, quant, sub_row_products
 
     dev = resolve_device(device)
@@ -55,14 +58,10 @@ def flexvector_spmm(
         block_k=block_k,
         block_f=block_f,
         hot_k_first=hot_k_first,
+        out_dtype=out_dtype,
         precision=precision,
     ).resolve(schedulable=True)
     operands = SpmmOperands.from_ell(ell, dev)
     vals, scales = operands.values_for(precision, block_rows)
-    if isinstance(dense, torch.Tensor):
-        dense = dense.to(dev)
-    else:
-        dense = torch.as_tensor(dense, dtype=torch.float32, device=dev)
-    dense = quant.cast_dense(dense, precision)
-    out = sub_row_products(plan, operands, vals, dense, scales)
-    return out if out_dtype is None else out.to(out_dtype)
+    dense = quant.cast_dense(dense_operand(dense, dev), precision)
+    return sub_row_products(plan, operands, vals, dense, scales)

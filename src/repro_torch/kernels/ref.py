@@ -8,24 +8,37 @@ PAD_COL = -1
 
 
 def spmm_ell_ref(cols: torch.Tensor, vals: torch.Tensor,
-                 dense: torch.Tensor) -> torch.Tensor:
+                 dense: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Row-wise product oracle over the bounded-RNZ ELL table.
 
     out[i] = sum_t vals[i, t] * dense[cols[i, t]]  (PAD_COL slots masked)
 
     The sub-row output before the vertex-cut partial-sum fold
-    (``repro_torch.core.spmm.segment_accumulate``).  Accumulates in f32,
-    one ELL slot at a time, so the temporary is one ``(R, F)`` gather.
+    (``repro_torch.core.spmm.segment_accumulate``).  ``out_dtype``
+    defaults to int32 for an integer ``dense``, else f32.  Each gathered
+    row and each weight is cast to ``out_dtype`` and their product taken
+    there (so a bf16 ``out_dtype`` rounds every product to bf16); the
+    products are summed in ``out_dtype``, or in f32 (int32) where it is a
+    narrower float (integer) type, and the sum is cast to ``out_dtype``
+    once, as the reference's ``.sum`` does.  One ELL slot at a time, so the
+    temporary is one ``(R, F)`` gather.
     """
+    if out_dtype is None:
+        out_dtype = (torch.float32 if dense.dtype.is_floating_point
+                     else torch.int32)
+    acc_dtype = out_dtype
+    if out_dtype.itemsize < 4:
+        acc_dtype = (torch.float32 if out_dtype.is_floating_point
+                     else torch.int32)
     keep = cols != PAD_COL
     safe = torch.where(keep, cols, 0).long()
     w = torch.where(keep, vals, torch.zeros((), dtype=vals.dtype,
-                                            device=vals.device)).float()
-    out = torch.zeros(cols.shape[0], dense.shape[1], dtype=torch.float32,
+                                            device=vals.device)).to(out_dtype)
+    out = torch.zeros(cols.shape[0], dense.shape[1], dtype=acc_dtype,
                       device=dense.device)
     for t in range(cols.shape[1]):
-        out += w[:, t, None] * dense[safe[:, t]].float()
-    return out
+        out += (w[:, t, None] * dense[safe[:, t]].to(out_dtype)).to(acc_dtype)
+    return out.to(out_dtype)
 
 
 def spmm_ell_quant_ref(cols: torch.Tensor, q_vals: torch.Tensor,
@@ -35,10 +48,10 @@ def spmm_ell_quant_ref(cols: torch.Tensor, q_vals: torch.Tensor,
 
     Dequantizes the symmetric per-row-block int8 values exactly (f32
     multiply by the block scale; rows past the last scale take 1.0) and
-    runs :func:`spmm_ell_ref`.
+    runs :func:`spmm_ell_ref` in f32.
     """
     return spmm_ell_ref(cols, dequantize_rows(q_vals, scales, block_rows),
-                        dense)
+                        dense, out_dtype=torch.float32)
 
 
 def row_scales(scales, block_rows: int, n_rows: int) -> torch.Tensor:

@@ -157,8 +157,10 @@ def _local_bytes(tree) -> int:
     return total
 
 
-def _run_step(cfg, shape, mesh, plan) -> Dict:
-    """One step of (cfg, shape) on fake DTensors: its counts."""
+def _run_step(cfg, shape, mesh, plan, donate: bool = True) -> Dict:
+    """One step of (cfg, shape) on fake DTensors: its counts.  Under
+    ``donate`` the bytes the step updates in place count as aliased, as
+    the reference's donated buffers do."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
 
@@ -194,7 +196,7 @@ def _run_step(cfg, shape, mesh, plan) -> Dict:
                    tracker.get_tracker_snapshot("peak").values())
         # the train step updates params and moments in place
         alias = (_local_bytes((args["params"], args["opt_state"]))
-                 if shape.kind == "train" else 0)
+                 if shape.kind == "train" and donate else 0)
         out_bytes = _local_bytes(out)
     return {
         "lower_s": round(t1 - t0, 2),
@@ -237,12 +239,20 @@ def _extrapolate(r1: Dict, r2: Dict, periods: int) -> Dict:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             fsdp: Optional[bool] = None, body_correction: bool = True,
-             chips: int = 256, model_parallel: int = 16,
-             device: str = "cuda") -> Dict:
+             fsdp: Optional[bool] = None, donate: bool = True,
+             body_correction: bool = True, chips: int = 256,
+             model_parallel: int = 16, device: str = "cuda") -> Dict:
     """The record of one cell.  ``device`` is the type of the fake
     tensors (``"cuda"`` plans the card's collectives, ``"cpu"`` gloo's,
-    which has no all-to-all)."""
+    which has no all-to-all).
+
+    ``donate`` is the reference's buffer donation.  PyTorch has no buffer
+    donation: the train step updates its params and moments in place
+    either way, so ``donate`` changes nothing that runs.  The record
+    carries it as the reference's does, in ``memory_per_device``'s
+    ``alias_bytes``: the bytes the step updates in place under ``donate``,
+    0 without it (the reference's decode donates its cache, which the
+    port's decode step copies, so it aliases nothing)."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import ShardingPlan
     from repro_torch.launch.mesh import make_production_mesh
@@ -280,8 +290,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                     device=device)
         plan = ShardingPlan(mesh, fsdp=fsdp)
         if body_correction and t_periods > 2:
-            r1 = _run_step(_reduced_depth(cfg, 1), shape, mesh, plan)
-            r2 = _run_step(_reduced_depth(cfg, 2), shape, mesh, plan)
+            r1 = _run_step(_reduced_depth(cfg, 1), shape, mesh, plan, donate)
+            r2 = _run_step(_reduced_depth(cfg, 2), shape, mesh, plan, donate)
             main = _extrapolate(r1, r2, t_periods)
             main.update(lower_s=r1["lower_s"] + r2["lower_s"],
                         compile_s=r1["compile_s"] + r2["compile_s"])
@@ -292,7 +302,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 "coll": r2["coll"]["total"] - r1["coll"]["total"],
             }
         else:
-            main = _run_step(cfg, shape, mesh, plan)
+            main = _run_step(cfg, shape, mesh, plan, donate)
             record["periods_run"] = [t_periods]
     record.update(lower_s=round(main["lower_s"], 2),
                   compile_s=round(main["compile_s"], 2),

@@ -323,9 +323,11 @@ def head(params: Params, cfg: ArchConfig) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-            memory: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full logits (B, S, vocab) f32."""
-    x = forward_hidden(params, cfg, tokens, memory)
+            memory: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
+    """Full logits (B, S, vocab) f32.  ``remat`` is :func:`forward_hidden`'s
+    (the same logits; only the backward pass's memory differs)."""
+    x = forward_hidden(params, cfg, tokens, memory, remat=remat)
     return (x @ head(params, cfg).to(x.dtype)).float()
 
 

@@ -3,8 +3,10 @@
 Every module of ``repro`` has a ``repro_torch`` module of the same path,
 and that module has each of the reference module's public names: those
 in its ``__all__``, or else every public function and class it defines.
-The walk runs in a subprocess, because ``repro.launch.dryrun`` sets
-``XLA_FLAGS`` when it is imported.
+Each of those that is a function or a class takes every parameter name
+the reference's takes, but for the deliberate departures written out in
+:data:`DEPARTURES`.  The walk runs in a subprocess, because
+``repro.launch.dryrun`` sets ``XLA_FLAGS`` when it is imported.
 """
 
 import json
@@ -25,12 +27,77 @@ SRC = os.path.join(ROOT, "src")
 # has them all.
 EXCEPTIONS = ()
 
+_GROUP = ("a named mesh axis that the reference's collectives run over "
+          "inside shard_map or vmap; the port runs one process per rank and "
+          "takes the torch.distributed process group")
+_AXIS_SIZES = ("the reference reads the axis sizes off a jax Mesh; the port "
+               "takes them as a dict ({axis: size}), which both a DeviceMesh "
+               "and an abstract planning mesh give (dist.topology.axis_sizes)")
+_BITMAPS = ("the TPU kernel's scalar-prefetched (row block, k-tile, first) "
+            "steps; the CUDA kernel takes the same schedule as one k-tile "
+            "bitmap per row block, built once per graph "
+            "(schedule_tile_bitmaps)")
+_OPERANDS = ("the reference passes the ELL columns and the host TiledELL "
+             "apart; the port passes the SpmmOperands that hold both and "
+             "memoize the schedules built from them")
+_SCAN = ("the reference's scan takes the stacked inputs and the axis its "
+         "outputs stack on; the port's loop takes the sequence length s and "
+         "its step indexes the inputs itself")
+
+#: Reference parameters the port renames or drops on purpose: for each
+#: callable (``module.qualname`` where the reference defines it; ``*`` for
+#: every callable), each such parameter, the port's parameters that take
+#: its place (empty: dropped), and the reason.
+DEPARTURES = {
+    "*": {
+        "interpret": ((), "Pallas' interpret mode; the port runs a kernel's "
+                          "plain PyTorch version on CPU tensors instead"),
+        "key": (("generator", "gen"), "a jax.random key; the port draws "
+                                      "from a torch.Generator"),
+        "axis": (("group",), _GROUP),
+        "axis_name": (("group",), _GROUP),
+    },
+    "repro.plan.cost.spec_shard_factor": {"mesh": (("axis_sizes",),
+                                                   _AXIS_SIZES)},
+    "repro.plan.cost.grad_sync_bytes": {"mesh": (("axis_sizes",),
+                                                 _AXIS_SIZES)},
+    "repro.plan.cost.rank_specs": {"mesh": (("axis_sizes",), _AXIS_SIZES)},
+    "repro.roofline.analysis.collective_bytes": {
+        "hlo_text": (("counted",), "the reference parses compiled HLO text; "
+                                   "the port has no HLO and reads the "
+                                   "collectives a CollectiveCounter "
+                                   "counted"),
+    },
+    "repro.models.ssm.chunked_scan": {"xs": (("s",), _SCAN),
+                                      "ys_time_axis": (("s",), _SCAN)},
+    "repro.kernels.flexvector_spmm.spmm_ell_sparse_grid": {
+        "rb_ids": (("tile_bitmaps",), _BITMAPS),
+        "kb_ids": (("tile_bitmaps",), _BITMAPS),
+        "first": (("tile_bitmaps",), _BITMAPS),
+    },
+    "repro.exec.dispatch.sub_row_products": {
+        "cols": (("operands",), _OPERANDS),
+        "ell": (("operands",), _OPERANDS),
+    },
+}
+
 REFERENCE_MODULES = sorted(
     m.name for m in pkgutil.walk_packages(repro.__path__, "repro."))
 
 _WALK = textwrap.dedent(f"""
     import importlib, inspect, json, sys
     sys.path.insert(0, {SRC!r})
+
+    def _params(o):
+        # parameter names, *args / **kwargs left out; None where the
+        # callable has no signature to read
+        try:
+            sig = inspect.signature(o)
+        except (TypeError, ValueError):
+            return None
+        return [p.name for p in sig.parameters.values()
+                if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
     out = {{}}
     for name in json.loads(sys.argv[1]):
         mod = importlib.import_module(name)
@@ -48,9 +115,18 @@ _WALK = textwrap.dedent(f"""
             out[name] = {{"module": port, "missing": None, "error": str(e),
                           "names": len(names)}}
             continue
+        params = {{}}
+        for n in names:
+            o, t = getattr(mod, n, None), getattr(tmod, n, None)
+            if t is None or not (inspect.isfunction(o)
+                                 or inspect.isclass(o)):
+                continue
+            params[n] = {{"defined": o.__module__ + "." + o.__qualname__,
+                          "reference": _params(o), "port": _params(t)}}
         out[name] = {{"module": port, "names": len(names),
                       "missing": sorted(n for n in names
-                                        if not hasattr(tmod, n))}}
+                                        if not hasattr(tmod, n)),
+                      "params": params}}
     print(json.dumps(out))
 """)
 
@@ -85,6 +161,56 @@ def test_port_module_has_every_public_name(surface, name):
     missing = [n for n in entry["missing"]
                if f"{entry['module']}.{n}" not in EXCEPTIONS]
     assert not missing, f"{entry['module']} lacks {missing}"
+
+
+def _lacking(entry) -> dict:
+    """``{callable: [reference parameters the port lacks]}`` of one
+    module's walk, the :data:`DEPARTURES` taken out where the port has a
+    parameter in the departed one's place (or none is named)."""
+    lacking = {}
+    for n, p in sorted(entry["params"].items()):
+        if p["reference"] is None or p["port"] is None:
+            continue
+        named = {**DEPARTURES["*"], **DEPARTURES.get(p["defined"], {})}
+        gone = [a for a in p["reference"] if a not in p["port"] and not (
+            a in named and (not named[a][0]
+                            or set(named[a][0]) & set(p["port"])))]
+        if gone:
+            lacking[n] = gone
+    return lacking
+
+
+@pytest.mark.parametrize("name", REFERENCE_MODULES)
+def test_port_callables_take_the_reference_parameters(surface, name):
+    """Each public function and class of the module takes every parameter
+    name the reference's takes (a dataclass: its fields), but for the
+    written departures."""
+    entry = surface[name]
+    assert entry["missing"] is not None, (
+        f"{entry['module']} does not import: {entry.get('error')}")
+    lacking = _lacking(entry)
+    assert not lacking, f"{entry['module']} lacks parameters {lacking}"
+
+
+def test_every_departure_is_still_a_departure(surface):
+    """Each callable's departure names a reference parameter the port's
+    callable of that name lacks, and each ``*`` departure is taken by some
+    callable: no entry hides a parameter the port has meanwhile taken."""
+    seen = {}
+    for entry in surface.values():
+        for p in (entry.get("params") or {}).values():
+            if p["reference"] is None or p["port"] is None:
+                continue
+            for key in ("*", p["defined"]):
+                for a in DEPARTURES.get(key, {}):
+                    if a in p["reference"] and a not in p["port"]:
+                        seen.setdefault(key, set()).add(a)
+    for key, named in DEPARTURES.items():
+        assert set(named) == seen.get(key, set()), (
+            f"{key}: departures {sorted(set(named) - seen.get(key, set()))} "
+            "name no parameter the port lacks")
+        for a, (instead, reason) in named.items():
+            assert reason, f"{key}.{a} has no reason"
 
 
 def test_every_port_module_and_export_imports_neither_jax_nor_repro():

@@ -426,11 +426,16 @@ def test_flexvector_spmm_matches_reference_wrapper(precision, skip_empty):
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     err = np.abs(got.numpy().astype(np.float64) - want).max()
     assert err <= 1e-5 * np.abs(want).max(), err
-    # a torch operand on the device, and an output dtype
+    # a torch operand on the device, and an output dtype the kernels
+    # store (each f32 sum rounded to bf16 once); one they do not store
+    # raises, naming it
     out = tops.flexvector_spmm(ell, torch.as_tensor(dense), device="cpu",
-                               out_dtype=torch.float64, **kw)
-    assert out.dtype == torch.float64
-    np.testing.assert_array_equal(out.numpy(), got.numpy().astype(np.float64))
+                               out_dtype=torch.bfloat16, **kw)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, got.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float64"):
+        tops.flexvector_spmm(ell, torch.as_tensor(dense), device="cpu",
+                             out_dtype=torch.float64, **kw)
 
 
 def test_flexvector_spmm_refuses_the_cpu_without_being_asked(monkeypatch):

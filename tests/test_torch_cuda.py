@@ -379,6 +379,108 @@ def test_cuda_aggregation_multi_slab(cuda_device, precision):
         assert rel_max_err(out, ref) <= TOL[name.replace("_scaled", "")], name
 
 
+def _store_calls(c, store, device, f):
+    """B1 and B2 of ``c`` with one of the aggregation kernels' other
+    stores (``fv.STORE_PRECISIONS``): ``f32->bf16``, ``bf16->bf16``,
+    ``int8->bf16`` (scaled int8 values) or ``int8->int32`` (int8 values
+    and an int8 operand, no scales), as (name, args, kwargs)."""
+    precision, out = store.split("->")
+    if store == "int8->int32":
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+
+        rng = np.random.default_rng(6)
+        kw = dict(c["kw"], block_f=f)
+        cols = t(c["cols"], torch.int32)
+        q = t(np.clip(np.rint(c["vals"] * 40), -127, 127), torch.int8)
+        d8 = t(rng.integers(-128, 128, c["dense"].shape), torch.int8)
+        bitmaps = t(fv.schedule_tile_bitmaps(
+            c["rb_ids"], c["kb_ids"], c["first"],
+            c["cols"].shape[0] // kw["block_rows"],
+            c["dense"].shape[0] // kw["block_k"]), torch.int32)
+        calls = [("spmm_ell_dense_grid", (cols, q, d8), kw),
+                 ("spmm_ell_sparse_grid", (cols, q, d8, bitmaps), kw)]
+    else:
+        calls = _aggregation_calls(c, precision, device, f)
+    return [(name, args, dict(kw, out_dtype=getattr(torch, {
+        "bf16": "bfloat16", "int32": "int32"}[out])))
+        for name, args, kw in calls]
+
+
+def within_one_bf16_ulp(out, ref, f32_tol=1e-5) -> bool:
+    """Every element of bf16 ``out`` within one bf16 ulp of bf16 ``ref``
+    (the larger magnitude's: 2^-7 of its power of two), beyond the f32
+    sums' own difference.  Kernel and plain version round f32 sums that
+    differ by FMA contraction only, at most ``f32_tol`` of max|ref| (the
+    f32 store's bar, :data:`TOL`); rounding each to bf16 adds at most half
+    an ulp apiece, so where a sum cancels its terms the difference stays
+    that of the f32 sums, however many ulps of the small result it is."""
+    out, ref = out.double().cpu(), ref.double().cpu()
+    mag = torch.maximum(out.abs(), ref.abs()).clamp(min=2.0 ** -126)
+    ulp = 2.0 ** (torch.floor(torch.log2(mag)) - 7)
+    slack = f32_tol * float(ref.abs().max())
+    return bool(((out - ref).abs() <= ulp + slack).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [41, 64, 100])
+@pytest.mark.parametrize("store", list(fv.STORE_PRECISIONS))
+def test_cuda_aggregation_stores_match_plain_versions(cuda_device, store, f):
+    """B1/B2's bf16 stores (each f32 sum rounded once) within one bf16 ulp
+    of their plain versions (the plain f32 sum rounded to bf16) beyond the
+    f32 sums' own difference (:func:`within_one_bf16_ulp`), and the
+    int8 x int8 -> int32 instantiation equal to its plain version, at the
+    main path's widths (41 int8 columns padded to 48, 64, and Yelp's 100),
+    on the ragged case; each launch counted under its store's key."""
+    c = _random_case(4, r=768, k=640, bk=64, f=f)
+    for name, args, kw in _store_calls(c, store, cuda_device, f):
+        key = f"{name}@{store}"
+        before = (fv.LAUNCHES[name], fv.PRECISION_LAUNCHES[key])
+        out = fv.KERNELS[name](*args, **kw)
+        ref = fv.PLAIN[name](*args, **kw)
+        torch.cuda.synchronize()
+        assert (fv.LAUNCHES[name], fv.PRECISION_LAUNCHES[key]) == (
+            before[0] + 1, before[1] + 1), key
+        assert out.dtype == ref.dtype == kw["out_dtype"], key
+        assert out.shape == ref.shape == (768, f), key
+        if store == "int8->int32":
+            assert torch.equal(out, ref), key
+        else:
+            assert within_one_bf16_ulp(out, ref), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["cuda", "cuda_sparse"])
+def test_cuda_int8_exact_spmm_ell_equals_the_reference_impl(cuda_device,
+                                                            impl):
+    """``spmm_ell`` over an ELL of int8 values with an int8 operand of 41
+    columns: the kernels' int32 answer on the card equal to the reference
+    impl's, exactly."""
+    import dataclasses
+
+    from repro_torch.core.preprocessing import preprocess
+    from repro_torch.core.spmm import spmm_ell
+
+    ell = preprocess(random_power_law_csr(320, 320, 5000, alpha=2.8, seed=2),
+                     tau=6, tile_rows=32, pad_rows_to=32).ell
+    q = np.clip(np.rint(ell.vals * 40), -127, 127).astype(np.int8)
+    ell8 = dataclasses.replace(ell, vals=q)
+    dense = np.random.default_rng(3).integers(-128, 128, (320, 41)).astype(
+        np.int8)
+    d = torch.as_tensor(dense, device=cuda_device)
+    kw = dict(block_rows=32, block_k=32, block_f=32, device=cuda_device)
+    want = spmm_ell(ell8, d, impl="reference", **kw)
+    fv.reset_launches()
+    got = spmm_ell(ell8, d, impl=impl, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    name = "spmm_ell_dense_grid" if impl == "cuda" else "spmm_ell_sparse_grid"
+    assert {k: n for k, n in fv.PRECISION_LAUNCHES.items() if n} == {
+        f"{name}@int8->int32": 1}
+
+
 # -- serving: the micro-batcher's CUDA graphs --------------------------------
 
 

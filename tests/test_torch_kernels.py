@@ -322,12 +322,18 @@ def test_quant_wrappers_refuse_unsupported_types():
     with pytest.raises(TypeError, match="b must be torch.float32"):
         tfv.spmm_ell_fused_dense_grid(cols, q, x, w, b.to(torch.bfloat16),
                                       **KW, **tsc, cast_xw=torch.bfloat16)
-    # int8 launches count under their own names, bf16 under the kernel's
+    # int8 launches with scales count under their own names, bf16 under
+    # the kernel's; the aggregation kernels' other stores under keys of
+    # their own
     assert set(tfv.KERNELS) == set(tfv.PLAIN) == set(tfv.LAUNCHES)
+    aggregation = ("spmm_ell_dense_grid", "spmm_ell_sparse_grid")
     assert sorted(tfv.PRECISION_LAUNCHES) == sorted(
         [f"{n}@{p}" for n in tfv.LAUNCHES if not n.endswith("_scaled")
          for p in ("f32", "bf16")]
-        + [f"{n}@int8" for n in tfv.LAUNCHES if n.endswith("_scaled")])
+        + [f"{n}@int8" for n in tfv.LAUNCHES if n.endswith("_scaled")]
+        + [f"{n}@{p}" for n in aggregation
+           for p in ("f32->bf16", "bf16->bf16", "int8->int32")]
+        + [f"{n}_scaled@int8->bf16" for n in aggregation])
     assert tfv.KERNELS["spmm_ell_dense_grid_scaled"] is tfv.spmm_ell_dense_grid
 
 

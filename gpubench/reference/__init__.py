@@ -1,0 +1,4 @@
+"""Plain PyTorch references that decide whether a run is ``correct``.
+
+They import nothing of the program under test.
+"""

@@ -2707,8 +2707,17 @@ def span_checks(torch, np, engine, requests, dev) -> dict:
         gcn_forward(engine.params, sub.graph, engine.features[sub.nodes],
                     engine.cfg, precision=engine.precision, device=dev).cpu()
     layers = trace.find("execute_layer")
+
+    def ledger_under(span):      # on the span or on the phases inside it
+        inside, found = {span.span_id}, False
+        for s in trace.spans:    # in the order opened: parents first
+            if s.span_id in inside or s.parent_id in inside:
+                inside.add(s.span_id)
+                found |= any(e.name == "ledger" for e in s.events)
+        return found
+
     check(len(layers) == engine.cfg.n_layers and all(
-        any(e.name == "ledger" for e in s.events) for s in layers),
+        ledger_under(s) for s in layers),
         f"an eager forward under a span gave {len(layers)} execute_layer "
         "spans (or one without ledger events)")
     # a rung's forward (an unfused engine's: no slot lists to stack)

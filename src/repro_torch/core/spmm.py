@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.sparse_formats import TiledELL, ell_to_dense
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import phase
 
 
 def spmm_ell(
@@ -134,13 +135,16 @@ def segment_accumulate(
 
     Padding sub-rows (``row_map == -1``) land in a spare row that is cut
     off.  On CUDA ``index_add_`` adds with atomics, so the order of the
-    partial sums of one row varies from run to run.
+    partial sums of one row varies from run to run.  It runs in the
+    ``gcn.fold`` phase (``obs.trace.phase``).
     """
-    safe = torch.where(row_map >= 0, row_map, n_out_rows).long()
-    out = torch.zeros(n_out_rows + 1, sub_rows.shape[1], dtype=sub_rows.dtype,
-                      device=sub_rows.device)
-    out.index_add_(0, safe, sub_rows)
-    return out[:n_out_rows]
+    with phase("gcn.fold", sub_rows=sub_rows.shape[0], out_rows=n_out_rows,
+               width=sub_rows.shape[1]):
+        safe = torch.where(row_map >= 0, row_map, n_out_rows).long()
+        out = torch.zeros(n_out_rows + 1, sub_rows.shape[1],
+                          dtype=sub_rows.dtype, device=sub_rows.device)
+        out.index_add_(0, safe, sub_rows)
+        return out[:n_out_rows]
 
 
 def spmm_dense_oracle(ell: TiledELL, dense) -> np.ndarray:

@@ -25,6 +25,7 @@ from repro_torch.exec.plan import SpmmPlan
 from repro_torch.exec.sharded import execute_sharded
 from repro_torch.kernels import flexvector_spmm as fv
 from repro_torch.kernels.ref import spmm_ell_ref
+from repro_torch.obs.trace import phase, plan_attributes
 
 
 def _tile_bitmaps(plan: SpmmPlan, operands: SpmmOperands, f: int):
@@ -162,34 +163,33 @@ def execute_layer(
     ``layer`` holds ``"w"``/``"b"`` and, for int8 weights, ``"w_scale"``
     with ``w_block_rows`` granularity (``quant.quantize_params``).
 
-    When a ``repro_torch.obs`` span is active on this thread, the layer
-    runs under an ``execute_layer`` child span stamped with the resolved
-    plan's attributes, and the ledger records fired inside land on it as
-    events.  Not inside a CUDA graph capture: what is captured runs at
-    each replay, not now, so no host span is opened for it.  The span is
-    host time, not device time: it closes when the layer's launches are
-    enqueued, and no synchronize is added for it.
+    The layer runs in the ``gcn.layer`` phase (``obs.trace.phase``),
+    stamped with the resolved plan's attributes: under an active
+    ``repro_torch.obs`` span an ``execute_layer`` child span, which the
+    ledger records fired inside land on (or on the phases inside it), and
+    a profiler range while ``torch.profiler`` runs.  Inside it the
+    unfused combination is ``gcn.combine`` and the aggregation
+    ``gcn.aggregate`` then ``gcn.fold``.  Not inside a CUDA graph
+    capture: what is captured runs at each replay, not now, so no phase
+    is opened for it.  A phase is host time, not device time: it closes
+    when its launches are enqueued, and no synchronize is added for it.
     """
     plan = plan.resolve(schedulable=operands.schedulable)
-    span = None
-    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
-        from repro_torch.obs.trace import start_layer_span  # no cycle
-
-        span = start_layer_span(plan)
-    try:
+    with phase("gcn.layer") as span:
+        if span:
+            span.set(**plan_attributes(plan))
         if (plan.fused and plan.effective_impl != "reference"
                 and not plan.feature_sharded):
             return execute_fused(plan, operands, x, layer,
                                  w_block_rows=w_block_rows)
-        xw = quant.affine(x, layer, plan.precision, w_block_rows)
-        rows = x.shape[0]
-        if plan.sharded and plan.dense_layout == "row_sharded":
-            rows *= plan.n_shards
-        record_combination_dram(plan, rows, x.shape[1], int(xw.shape[1]))
+        with phase("gcn.combine", rows=x.shape[0], f_in=x.shape[1],
+                   f_out=layer["w"].shape[1]):
+            xw = quant.affine(x, layer, plan.precision, w_block_rows)
+            rows = x.shape[0]
+            if plan.sharded and plan.dense_layout == "row_sharded":
+                rows *= plan.n_shards
+            record_combination_dram(plan, rows, x.shape[1], int(xw.shape[1]))
         return execute(plan, operands, xw)
-    finally:
-        if span is not None:
-            span.finish()
 
 
 def execute(
@@ -200,9 +200,14 @@ def execute(
     plan = plan.resolve(schedulable=operands.schedulable)
     if plan.sharded or plan.feature_sharded:
         return execute_sharded(plan, operands, dense)
-    vals, scales, dense = prepare_precision(plan, operands, dense)
     r, tau = operands.cols.shape
-    record_spmm_dram(plan, r, tau, dense.shape[0], dense.shape[1],
-                     operands.n_out_rows)
-    sub = sub_row_products(plan, operands, vals, dense, scales)
+    f = dense.shape[1]
+    with phase("gcn.aggregate", sub_rows=r, slots=r * tau, f_out=f) as p:
+        vals, scales, dense = prepare_precision(plan, operands, dense)
+        if p:
+            padded = (f if plan.effective_impl == "reference"
+                      else fv.aligned_width(f, dense.dtype))
+            p.set(padded_f=padded, useful=f / padded)
+        record_spmm_dram(plan, r, tau, dense.shape[0], f, operands.n_out_rows)
+        sub = sub_row_products(plan, operands, vals, dense, scales)
     return segment_accumulate(sub, operands.row_map, operands.n_out_rows)

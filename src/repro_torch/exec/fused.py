@@ -36,6 +36,7 @@ from repro_torch.exec import quant
 from repro_torch.exec.operands import SpmmOperands
 from repro_torch.exec.plan import SpmmPlan
 from repro_torch.kernels import flexvector_spmm as fv
+from repro_torch.obs.trace import phase
 
 
 def _round_up(x: int, q: int) -> int:
@@ -210,17 +211,29 @@ def execute_fused(
         )
     if plan.sharded:
         return _execute_fused_sharded(plan, operands, x, layer, w_block_rows)
-    name, args, kw, (r, f_out) = fused_args(plan, operands, x, layer,
-                                            w_block_rows)
-    k, f_in = x.shape
-    record_fused_dram(
-        plan, r, operands.cols.shape[1], k, f_in, f_out, operands.n_out_rows,
-        n_fb=args[3].shape[1] // plan.block_f,
-        occ_frac=_occupied_frac(plan, operands),
-    )
-    sub = fv.KERNELS[name](*args, **kw)
-    return segment_accumulate(sub[:r, :f_out], operands.row_map,
-                              operands.n_out_rows)
+    r, tau = operands.cols.shape
+    with _aggregate_phase(plan, r, tau, layer["w"].shape[1]):
+        name, args, kw, (r, f_out) = fused_args(plan, operands, x, layer,
+                                                w_block_rows)
+        k, f_in = x.shape
+        record_fused_dram(
+            plan, r, tau, k, f_in, f_out, operands.n_out_rows,
+            n_fb=args[3].shape[1] // plan.block_f,
+            occ_frac=_occupied_frac(plan, operands),
+        )
+        sub = fv.KERNELS[name](*args, **kw)[:r, :f_out]
+    return segment_accumulate(sub, operands.row_map, operands.n_out_rows)
+
+
+def _aggregate_phase(plan: SpmmPlan, r: int, tau: int, f_out: int):
+    """The ``gcn.aggregate`` phase of one fused launch: its operands' set-up,
+    the launch (its zero fill of the sub-row output included) and the
+    slice of the padded output, with the padded output width."""
+    p = phase("gcn.aggregate", sub_rows=r, slots=r * tau, f_out=f_out)
+    if p:
+        padded = _round_up(f_out, plan.block_f)
+        p.set(padded_f=padded, useful=f_out / padded)
+    return p
 
 
 def _execute_fused_sharded(
@@ -261,7 +274,8 @@ def _execute_fused_sharded(
         from repro_torch.dist.collectives import all_gather_rows
 
         x = all_gather_rows(x, where.group)
-    name, args, kw, (r, f_out) = fused_args(plan, shard, x, layer,
-                                            w_block_rows)
-    sub = fv.KERNELS[name](*args, **kw)
-    return epilogue(sub[:r, :f_out], shard.row_map, where)
+    with _aggregate_phase(plan, *shard.cols.shape, layer["w"].shape[1]):
+        name, args, kw, (r, f_out) = fused_args(plan, shard, x, layer,
+                                                w_block_rows)
+        sub = fv.KERNELS[name](*args, **kw)[:r, :f_out]
+    return epilogue(sub, shard.row_map, where)

@@ -20,6 +20,7 @@ operands of its own, which memoize their own schedules.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
@@ -51,6 +52,8 @@ class SpmmOperands:
     precision: str = "f32"
     _memo: Dict[Hashable, Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+    _builds: Dict[Hashable, float] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def schedulable(self) -> bool:
@@ -64,8 +67,17 @@ class SpmmOperands:
     def memo(self, key: Hashable, build: Callable[[], Any]) -> Any:
         """``build()`` once per ``key`` for this operand, then the kept value."""
         if key not in self._memo:
+            t0 = time.perf_counter()
             self._memo[key] = build()
+            self._builds[key] = time.perf_counter() - t0
         return self._memo[key]
+
+    @property
+    def memo_builds(self) -> Dict[Hashable, float]:
+        """``key -> host seconds`` of each :meth:`memo` build: what was
+        built for this operand (one build a key), and what it cost.  Once
+        every shape has run, a forward builds nothing more."""
+        return dict(self._builds)
 
     def values_for(self, precision: str, block_rows: int):
         """``(vals, scales)`` as a plan of ``precision`` with ``block_rows``

@@ -36,6 +36,7 @@ from repro_torch.dist.topology import axis_sizes
 from repro_torch.exec import quant
 from repro_torch.exec.dispatch import execute_layer
 from repro_torch.exec.plan import SpmmPlan
+from repro_torch.obs.trace import phase
 from repro_torch.plan import cost as cost_mod
 
 LAYOUTS = ("replicated", "row_sharded")
@@ -457,28 +458,40 @@ def pipeline_forward(
     sharded mesh its slice of the padded rows, left in the permuted
     order, the form a following sharded stage consumes).
     ``dist.collectives.assemble`` gathers the global logits.
+
+    One inference runs in the ``gcn.forward`` phase (``obs.trace.phase``):
+    ``gcn.permute`` on entry, each layer's ``gcn.layer``, the
+    ``gcn.activation`` between layers and ``gcn.unpermute`` on exit.
     """
     if len(pplan.layers) != len(params):
         raise ValueError(
             f"pipeline plan has {len(pplan.layers)} layers, params have "
             f"{len(params)}")
-    dev = _run_device(pplan, device)
-    operands, perm, inv = graph.on_device(dev)
-    x = torch.as_tensor(features, dtype=torch.float32, device=dev)[perm]
-    layout = "replicated"
     n_layers = len(pplan.layers)
-    for i, lp in enumerate(pplan.layers):
-        plan = lp.spmm
-        p = quant.quantize_params({"l": params[f"layer_{i}"]},
-                                  plan.precision, plan.block_rows)["l"]
-        x = _relayout(x, layout, _layout(plan, "dense"), plan)
-        x = execute_layer(plan, operands, x, p, w_block_rows=plan.block_rows)
-        layout = _layout(plan, "out")
-        if i < n_layers - 1:
-            if plan.feature_sharded:   # the next combination takes all of F
-                group = plan.mesh.get_group(plan.feature_axis)
-                x = all_gather_columns(x, group)[:, :lp.f_out]
-            x = torch.relu(x)
-    if layout == "row_sharded":
-        return x          # permuted order, padded height, this rank's rows
-    return x[inv]
+    with phase("gcn.forward", layers=n_layers):
+        dev = _run_device(pplan, device)
+        operands, perm, inv = graph.on_device(dev)
+        with phase("gcn.permute", rows=perm.shape[0]) as ph:
+            x = torch.as_tensor(features, dtype=torch.float32,
+                                device=dev)[perm]
+            ph.set(width=x.shape[1])
+        layout = "replicated"
+        for i, lp in enumerate(pplan.layers):
+            plan = lp.spmm
+            p = quant.quantize_params({"l": params[f"layer_{i}"]},
+                                      plan.precision, plan.block_rows)["l"]
+            x = _relayout(x, layout, _layout(plan, "dense"), plan)
+            x = execute_layer(plan, operands, x, p,
+                              w_block_rows=plan.block_rows)
+            layout = _layout(plan, "out")
+            if i < n_layers - 1:
+                with phase("gcn.activation", rows=x.shape[0], width=lp.f_out):
+                    # the next combination takes all of F
+                    if plan.feature_sharded:
+                        group = plan.mesh.get_group(plan.feature_axis)
+                        x = all_gather_columns(x, group)[:, :lp.f_out]
+                    x = torch.relu(x)
+        if layout == "row_sharded":
+            return x          # permuted order, padded height, this rank's rows
+        with phase("gcn.unpermute", rows=inv.shape[0], width=x.shape[1]):
+            return x[inv]

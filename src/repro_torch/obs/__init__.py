@@ -6,7 +6,8 @@ Three pieces:
 * :mod:`repro_torch.obs.trace` — ``Tracer`` / ``Trace`` / ``Span``: one
   structured trace per served request, clocked by ``runtime.clock``
   (deterministic under ``VirtualClock``), with ``CollectiveLedger``
-  records adopted as span events.
+  records adopted as span events; and ``phase``, the forward's and the
+  registry's phases as child spans and ``torch.profiler`` ranges.
 * :mod:`repro_torch.obs.export` — registry snapshots + drained spans as
   JSON and Prometheus text exposition.
 * :mod:`repro_torch.obs.feedback` — ``PlanFeedback``: per-(bucket, plan)
@@ -36,6 +37,7 @@ from repro_torch.obs.trace import (
     current_span,
     engine_batch_info,
     install_ledger_listener,
+    phase,
     plan_attributes,
     start_layer_span,
     use_span,
@@ -52,6 +54,7 @@ __all__ = [
     "engine_batch_info",
     "start_layer_span",
     "install_ledger_listener",
+    "phase",
     "PlanFeedback",
     "bucket_key",
     "plan_key",

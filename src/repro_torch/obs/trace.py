@@ -18,10 +18,19 @@ Design constraints, in order:
   is bit-for-bit deterministic, so tests assert exact span edges.
 * **Zero cost when off.** Nothing in the hot path allocates unless a
   tracer was handed to the runtime; instrumented call sites only do a
-  ``getattr(request, "trace", None)`` check.
+  ``getattr(request, "trace", None)`` check, and a :func:`phase` one C
+  call and one thread-local read, its counts dearer to compute than a
+  shape read only ``if`` the phase is open.
 * **No upward imports.** This module depends only on
-  ``runtime.clock``; the ledger hookup is lazy so ``dist`` stays a
-  leaf layer.
+  ``runtime.clock`` and torch; the ledger hookup is lazy so ``dist``
+  stays a leaf layer.
+
+:func:`phase` marks where the GCN forward's work happens (``gcn.forward``
+around one inference; ``gcn.permute``, ``gcn.layer``, ``gcn.combine``,
+``gcn.aggregate``, ``gcn.fold``, ``gcn.activation``, ``gcn.unpermute``
+inside it).  A phase is an ``obs`` child span when a span is current,
+and a ``torch.profiler`` range, which the profiler's trace puts on the
+device's clock, when a profiler runs; tracing is on exactly then.
 
 Span ids and trace ids are deterministic counters (no randomness, no
 wall-clock salt) — resumable tests and virtual-clock runs stay exact.
@@ -34,6 +43,8 @@ import itertools
 import threading
 from collections import deque
 from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
 
 from repro_torch.runtime.clock import Clock, RealClock
 
@@ -48,6 +59,7 @@ __all__ = [
     "engine_batch_info",
     "start_layer_span",
     "install_ledger_listener",
+    "phase",
 ]
 
 
@@ -249,15 +261,20 @@ class Tracer:
 # ledger) attach children/events without threading a trace through
 # every signature.
 
-_tls = threading.local()
+class _Local(threading.local):
+    """Each thread's stack of current spans, there from the first read (a
+    read of a missing thread-local attribute raises inside, ~1 us)."""
+
+    def __init__(self):
+        self.stack: list = []
+
+
+_tls = _Local()
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 
 def _stack() -> list:
-    stack = getattr(_tls, "stack", None)
-    if stack is None:
-        stack = []
-        _tls.stack = stack
-    return stack
+    return _tls.stack
 
 
 def current_span() -> Optional[Span]:
@@ -279,39 +296,122 @@ def use_span(span: Span):
             stack.remove(span)
 
 
-class _OpenSpan:
-    """Handle for an eagerly-opened layer span: finish() pops + ends."""
-
-    __slots__ = ("span",)
-
-    def __init__(self, span: Span):
-        self.span = span
-
-    def finish(self, at: Optional[float] = None) -> None:
-        stack = _stack()
-        if stack and stack[-1] is self.span:
-            stack.pop()
-        elif self.span in stack:  # pragma: no cover - unbalanced exit
-            stack.remove(self.span)
-        self.span.finish(at=at)
+def _capturing() -> bool:
+    """Whether a CUDA graph capture is underway on the current stream:
+    what is captured runs at each replay, not now, so no phase opens."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
-def start_layer_span(plan) -> Optional[_OpenSpan]:
-    """Open an ``execute_layer`` child of the current span, if any.
+class Phase:
+    """One open phase of the work, in up to two sinks at once.
 
-    Used by ``exec.dispatch.execute_layer`` outside a CUDA graph
-    capture; returns ``None`` when no span is active so the
-    uninstrumented path costs one thread-local read. The opened span
-    becomes current, so ledger records fired inside the layer land on it
-    as events.
+    Under an active ``obs`` span it is a child :class:`Span` carrying the
+    phase's counts as attributes, made current so that phases and ledger
+    records inside it land on it; while ``torch.profiler`` runs it is a
+    ``record_function`` range, which the profiler's trace holds as a
+    ``user_annotation`` on the clock of the device's kernels.  The span
+    is host time: it closes when the phase's launches are enqueued, and
+    no synchronize is added for it.  ``finish`` (or leaving the ``with``)
+    closes both.
     """
-    cur = current_span()
-    if cur is None:
+
+    __slots__ = ("span", "_range")
+
+    def __init__(self, name: str, counts: Dict[str, object]):
+        self.span: Optional[Span] = None
+        self._range = None
+        cur = current_span()
+        if cur is not None:
+            self.span = cur.trace.span(_SPAN_NAMES.get(name, name), parent=cur,
+                                       **counts)
+            _stack().append(self.span)
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(name)
+            self._range.__enter__()
+
+    def set(self, **counts: object) -> None:
+        """Add counts known only once the phase has begun."""
+        if self.span is not None:
+            self.span.set(**counts)
+
+    def finish(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if self.span is not None:
+            stack = _stack()
+            if stack and stack[-1] is self.span:
+                stack.pop()
+            elif self.span in stack:  # pragma: no cover - unbalanced exit
+                stack.remove(self.span)
+            self.span.finish()
+
+    def __enter__(self) -> "Phase":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.finish()
+
+
+class _NoPhase:
+    """The shared phase of untraced work: opens, counts and closes
+    nothing, and is false, so that a caller computes the counts that
+    cost work only ``if`` its phase is open."""
+
+    __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
+
+    def set(self, **counts: object) -> None:
+        pass
+
+    def __enter__(self) -> "_NoPhase":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+
+_NO_PHASE = _NoPhase()
+
+#: The ``obs`` span name of a phase whose span the reference's trace tree
+#: already names: the layer phase is its ``execute_layer`` span.
+_SPAN_NAMES = {"gcn.layer": "execute_layer"}
+
+
+def phase(name: str, **counts: object):
+    """A context manager around one phase of the work (``gcn.fold``, ...).
+
+    It opens a :class:`Phase` when a profiler runs or an ``obs`` span is
+    current, and not inside a CUDA graph capture; else it returns the
+    shared no-op phase, which is false, having made nothing (the call's
+    keyword dict comes from CPython's free list).  ``counts`` are the
+    phase's host-known sizes (rows, widths), kept as the span's
+    attributes; counts that cost work to compute are added with
+    ``set`` under ``if`` the phase.
+    """
+    if (_profiler_enabled() or _tls.stack) and not _capturing():
+        return Phase(name, counts)
+    return _NO_PHASE
+
+
+def start_layer_span(plan) -> Optional[Phase]:
+    """The ``gcn.layer`` phase of one layer, stamped with the resolved
+    plan's attributes; ``None`` when :func:`phase` opens nothing.
+
+    Under an active ``obs`` span its span is the reference's
+    ``execute_layer`` child, and the ledger records fired inside the
+    layer land on it or on the phases inside it as events; the caller
+    ``finish``es it.  ``exec.dispatch.execute_layer`` opens the same
+    phase with ``with``.
+    """
+    p = phase("gcn.layer")
+    if not p:
         return None
-    span = cur.trace.span("execute_layer", parent=cur,
-                          **plan_attributes(plan))
-    _stack().append(span)
-    return _OpenSpan(span)
+    p.set(**plan_attributes(plan))
+    return p
 
 
 # --------------------------------------------------------------------------

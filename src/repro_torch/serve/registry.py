@@ -24,6 +24,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import pickle
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -39,11 +41,18 @@ _KEY_VERSION = "v1"
 
 @dataclasses.dataclass
 class RegistryStats:
-    """Counters proving where each artifact came from."""
+    """Counters proving where each artifact came from, and the host
+    seconds of each step of set-up, summed over calls."""
 
     mem_hits: int = 0
     disk_hits: int = 0
     builds: int = 0          # preprocessing actually ran
+    hash_s: float = 0.0      # graph_key's content hash
+    read_s: float = 0.0      # the disk cache's file reads ...
+    read_bytes: int = 0
+    unpickle_s: float = 0.0  # ... and the rest of its unpickling
+    build_s: float = 0.0     # preprocessing
+    store_s: float = 0.0     # pickling to the disk cache
 
 
 def graph_key(adj: CSRMatrix, cfg: GCNConfig) -> str:
@@ -88,23 +97,54 @@ class ArtifactRegistry:
         sampled subgraphs stay memory-only).  ``key`` lets callers that
         already hashed the adjacency skip a second content pass."""
         if key is None:
-            key = graph_key(adj, cfg)
+            key = self._key(adj, cfg)
         graph = self._graphs.get(key)
         if graph is not None:
             self.stats.mem_hits += 1
             return graph
         if persist:
-            graph, hit = disk_cache.load_pickle(key, self.disk_dir)
+            graph, hit = self._load(key)
             if hit:
                 self.stats.disk_hits += 1
                 self._graphs.put(key, graph)
                 return graph
+        t0 = time.perf_counter()
         graph = GCNGraph.build(adj, cfg)
+        self.stats.build_s += time.perf_counter() - t0
         self.stats.builds += 1
         if persist:
-            disk_cache.store_pickle(key, graph, self.disk_dir)
+            self._store(key, graph)
         self._graphs.put(key, graph)
         return graph
+
+    def _key(self, adj: CSRMatrix, cfg: GCNConfig) -> str:
+        """:func:`graph_key`, timed."""
+        t0 = time.perf_counter()
+        key = graph_key(adj, cfg)
+        self.stats.hash_s += time.perf_counter() - t0
+        return key
+
+    def _load(self, key: str):
+        """``serve.cache.load_pickle``'s ``(artifact, hit)``: a hit's file
+        read whole, then unpickled from memory, each step timed (the
+        pickle's format is unchanged)."""
+        path = disk_cache.cache_path(key, self.disk_dir)
+        if not os.path.exists(path):
+            return None, False
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        obj = pickle.loads(data)
+        self.stats.unpickle_s += time.perf_counter() - t1
+        self.stats.read_s += t1 - t0
+        self.stats.read_bytes += len(data)
+        return obj, True
+
+    def _store(self, key: str, obj) -> None:
+        t0 = time.perf_counter()
+        disk_cache.store_pickle(key, obj, self.disk_dir)
+        self.stats.store_s += time.perf_counter() - t0
 
     def forward_step(
         self, adj: CSRMatrix, cfg: GCNConfig, persist: bool = True,
@@ -124,7 +164,7 @@ class ArtifactRegistry:
         chosen per-layer plans.
         """
         dev = resolve_device(device)
-        gkey = graph_key(adj, cfg)
+        gkey = self._key(adj, cfg)
         key = (gkey, cfg, precision, plan, dev, device_model)
         fwd = self._forwards.get(key)
         if fwd is not None:
@@ -159,23 +199,25 @@ class ArtifactRegistry:
         """
         from repro_torch.exec import quant
 
-        gkey = graph_key(adj, cfg)
+        gkey = self._key(adj, cfg)
         qkey = f"{gkey}_q_{precision}_{cfg.block_rows}"
         art = self._graphs.get(qkey)
         if art is not None:
             self.stats.mem_hits += 1
             return art
         if persist:
-            art, hit = disk_cache.load_pickle(qkey, self.disk_dir)
+            art, hit = self._load(qkey)
             if hit:
                 self.stats.disk_hits += 1
                 self._graphs.put(qkey, art)
                 return art
         graph = self.get_or_build(adj, cfg, persist=persist, key=gkey)
+        t0 = time.perf_counter()
         art = quant.quantize_ell(graph.pre.ell, precision, cfg.block_rows)
+        self.stats.build_s += time.perf_counter() - t0
         self.stats.builds += 1
         if persist:
-            disk_cache.store_pickle(qkey, art, self.disk_dir)
+            self._store(qkey, art)
         self._graphs.put(qkey, art)
         return art
 

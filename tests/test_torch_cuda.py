@@ -854,12 +854,23 @@ def test_cuda_runtime_worker_replays_the_captured_graphs(cuda_device,
     assert len(fb) >= 1
 
 
+def _ledger_under(trace, span):
+    """The ledger events of ``span`` and of the phase spans inside it."""
+    inside, events = {span.span_id}, []
+    for s in trace.spans:          # in the order opened: parents first
+        if s.span_id in inside or s.parent_id in inside:
+            inside.add(s.span_id)
+            events += [e for e in s.events if e.name == "ledger"]
+    return events
+
+
 @pytest.mark.cuda
 def test_cuda_runtime_capture_under_span_opens_no_span(cuda_device, tmp_path):
     """An eager forward on the card under an active span opens one
-    ``execute_layer`` span per layer with its ledger events; a capture of
-    the rung's forward inside the span opens none and captures without
-    error, and its replay answers as the eager pass did."""
+    ``execute_layer`` span per layer with its ledger events (on it or on
+    the phases inside it); a capture of the rung's forward inside the
+    span opens none and captures without error, and its replay answers
+    as the eager pass did."""
     from repro_torch.obs import Tracer, use_span
     from repro_torch.runtime import VirtualClock
     from repro_torch.serve.batcher import _CapturedForward
@@ -879,7 +890,7 @@ def test_cuda_runtime_capture_under_span_opens_no_span(cuda_device, tmp_path):
         torch.cuda.synchronize()
     layers = trace.find("execute_layer")
     assert len(layers) == card.cfg.n_layers
-    assert all(any(e.name == "ledger" for e in s.events) for s in layers)
+    assert all(_ledger_under(trace, s) for s in layers)
     exe = _CapturedForward(fwd, card.params, specs, cuda_device,
                            torch.cuda.graph_pool_handle())
     with use_span(trace.root):

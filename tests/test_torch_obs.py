@@ -85,6 +85,35 @@ def _dicts(traces):
     return [t.to_dict() for t in traces]
 
 
+def _is_phase(span: dict) -> bool:
+    """A span of the port's phases that the reference does not open
+    (the layer phase is the reference's ``execute_layer`` span)."""
+    return span["name"].startswith("gcn.")
+
+
+def _reference_view(trace: dict) -> dict:
+    """The port's trace dict as the reference records it: the phase spans
+    dropped, their ledger events handed, in the order they were recorded,
+    to the nearest enclosing span the reference also opens, and span ids
+    renumbered in order."""
+    by_id = {s["span_id"]: s for s in trace["spans"]}
+
+    def kept(sid):
+        while _is_phase(by_id[sid]):
+            sid = by_id[sid]["parent_id"]
+        return sid
+
+    spans = [dict(s, events=[]) for s in trace["spans"] if not _is_phase(s)]
+    ids = {s["span_id"]: i for i, s in enumerate(spans)}
+    for s in trace["spans"]:
+        spans[ids[kept(s["span_id"])]]["events"].extend(s["events"])
+    for s in spans:
+        s["span_id"] = ids[s["span_id"]]
+        if s["parent_id"] is not None:
+            s["parent_id"] = ids[kept(s["parent_id"])]
+    return dict(trace, spans=spans)
+
+
 # ---------------------------------------------------------------------------
 # labels, trace primitives, queue/scheduler trace statuses
 # ---------------------------------------------------------------------------
@@ -473,8 +502,14 @@ def test_eager_execute_layer_span_matches_reference(impl, precision, fused):
         second = np.asarray(run())
         out[name] = (trace.to_dict(), first, second)
     want, got = out["reference"], out["port"]
-    assert got[0] == _port_names(want[0])
-    [span] = [s for s in got[0]["spans"] if s["name"] == "execute_layer"]
+    assert _reference_view(got[0]) == _port_names(want[0])
+    [layer] = [s for s in got[0]["spans"] if s["name"] == "execute_layer"]
+    assert [s["name"] for s in got[0]["spans"]
+            if s["parent_id"] == layer["span_id"]] == (
+        ["gcn.aggregate", "gcn.fold"] if fused and impl != "reference"
+        else ["gcn.combine", "gcn.aggregate", "gcn.fold"])
+    [span] = [s for s in _reference_view(got[0])["spans"]
+              if s["name"] == "execute_layer"]
     kinds = {e["attributes"]["kind"] for e in span["events"]}
     assert "spmm_dram" in kinds or "fused_writeback_saved" in kinds
     assert sp.rel_max_err(got[1], want[1]) <= 1e-5
@@ -514,10 +549,12 @@ def test_eager_gcn_forward_spans_match_reference():
         with O.use_span(trace.root):
             logits = np.asarray(run())
         out[name] = (trace.to_dict(), logits)
-    assert out["port"][0] == _port_names(out["reference"][0])
-    layers = [s for s in out["port"][0]["spans"]
-              if s["name"] == "execute_layer"]
+    port = _reference_view(out["port"][0])
+    assert port == _port_names(out["reference"][0])
+    layers = [s for s in port["spans"] if s["name"] == "execute_layer"]
     assert len(layers) == 2 and all(s["events"] for s in layers)
+    assert [s["name"] for s in out["port"][0]["spans"]
+            if s["parent_id"] == 0] == ["gcn.forward"]
     assert sp.rel_max_err(out["port"][1], out["reference"][1]) <= 1e-5
 
 
@@ -652,3 +689,278 @@ def test_gcn_fleet_traces_match_reference(impl, precision, fused):
         assert ex["attributes"]["servable"] == "toy"
         assert any(e["attributes"]["kind"] == "spmm_dram"
                    for e in ex["events"])
+
+
+# ---------------------------------------------------------------------------
+# phases of the GCN forward and of the registry's set-up (obs.trace.phase)
+# ---------------------------------------------------------------------------
+
+import repro_torch.obs.trace as T_TRACE  # noqa: E402
+
+#: One unfused and one fused layer's phases, as they nest.
+LAYER_PHASES = {False: ["gcn.combine", "gcn.aggregate", "gcn.fold"],
+                True: ["gcn.aggregate", "gcn.fold"]}
+
+
+def _forward_tree(fused):
+    """The phase tree of one two-layer forward, ``(name, children)``."""
+    layer = ("gcn.layer", [(n, []) for n in LAYER_PHASES[fused]])
+    return [("gcn.forward", [("gcn.permute", []), layer,
+                             ("gcn.activation", []), layer,
+                             ("gcn.unpermute", [])])]
+
+
+def _phase_case(fused):
+    """A port-only two-layer forward on a small graph: ``(run, graph)``."""
+    from repro_torch.graphs.datasets import (DatasetSpec, gcn_normalize,
+                                             synthesize_adjacency)
+    from repro_torch.models.gcn import init_params
+
+    adj = gcn_normalize(synthesize_adjacency(DatasetSpec("x", 200, 900, 8),
+                                             seed=1))
+    cfg = TConfig(in_dim=12, hidden_dim=8, out_dim=3, tau=4, tile_rows=16,
+                  spmm_impl="cuda", block_rows=16, block_k=16, block_f=16)
+    graph = TGraph.build(adj, cfg)
+    params = init_params(cfg, device="cpu")
+    x = torch.randn(200, 12, generator=torch.Generator().manual_seed(0))
+    plan = TPlan(impl="cuda", block_rows=16, block_k=16, block_f=16,
+                 fused=fused)
+
+    def run():
+        return t_gcn_forward(params, graph, x, cfg, plan=plan, device="cpu")
+
+    return run, graph
+
+
+def _profiled_phases(run, tmp_path):
+    """The ``gcn.*`` ranges ``run()`` leaves in the profiler's Chrome trace,
+    nested by their intervals: ``(name, children)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = sorted(
+        ((float(e["ts"]), -float(e["dur"]), e["name"]) for e in events
+         if e.get("cat") == "user_annotation"
+         and e["name"].startswith("gcn.")))
+    root: list = []
+    open_ = [(float("inf"), root)]
+    for ts, neg_dur, name in ranges:
+        while ts >= open_[-1][0]:
+            open_.pop()
+        children: list = []
+        open_[-1][1].append((name, children))
+        open_.append((ts - neg_dur, children))
+    return root
+
+
+def _span_tree(trace, parent_id):
+    return [(s.name, _span_tree(trace, s.span_id)) for s in trace.spans
+            if s.parent_id == parent_id]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_forward_phases_under_the_profiler(fused, tmp_path):
+    """Under ``torch.profiler`` a forward leaves the table's phases as
+    ranges: one ``gcn.forward`` holding the permutation, each layer (its
+    combination when unfused, aggregation and fold), the activation
+    between layers and the inverse permutation; none without it."""
+    run, _ = _phase_case(fused)
+    want = run()
+    assert _profiled_phases(run, tmp_path) == _forward_tree(fused)
+    torch.testing.assert_close(run(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_forward_phases_under_an_obs_span(fused):
+    """Under an active ``obs`` span the same tree is made of ``Span``
+    children of the span ``execute_layer``'s parent is (the layer phase
+    under its ``execute_layer`` name), each with its counts."""
+    run, graph = _phase_case(fused)
+    tracer = TO.Tracer(clock=TR.VirtualClock())
+    trace = tracer.trace("eager")
+    with TO.use_span(trace.root):
+        run()
+    assert TO.current_span() is None
+    names = {"gcn.layer": "execute_layer"}
+
+    def renamed(tree):
+        return [(names.get(n, n), renamed(c)) for n, c in tree]
+
+    assert _span_tree(trace, trace.root.span_id) == renamed(
+        _forward_tree(fused))
+    [forward] = trace.find("gcn.forward")
+    assert forward.attributes == {"layers": 2}
+    assert all(s.parent_id == forward.span_id
+               for s in trace.find("execute_layer"))
+    operands = graph.on_device(torch.device("cpu"))[0]
+    r, tau = operands.cols.shape
+    padded = {False: (8, 4), True: (16, 16)}[fused]
+    for i, (f_in, f_out) in enumerate([(12, 8), (8, 3)]):
+        agg = trace.find("gcn.aggregate")[i].attributes
+        assert agg == {"sub_rows": r, "slots": r * tau, "f_out": f_out,
+                       "padded_f": padded[i],
+                       "useful": f_out / padded[i]}
+        assert trace.find("gcn.fold")[i].attributes == {
+            "sub_rows": r, "out_rows": 200, "width": f_out}
+        if not fused:
+            assert trace.find("gcn.combine")[i].attributes == {
+                "rows": 200, "f_in": f_in, "f_out": f_out}
+    assert trace.find("gcn.permute")[0].attributes == {"rows": 200,
+                                                       "width": 12}
+    assert trace.find("gcn.activation")[0].attributes == {"rows": 200,
+                                                          "width": 8}
+    assert trace.find("gcn.unpermute")[0].attributes == {"rows": 200,
+                                                         "width": 3}
+
+
+def _counting_record_function(monkeypatch):
+    import torch.profiler
+
+    calls = []
+    real = torch.profiler.record_function
+
+    def counted(name, *args, **kwargs):
+        calls.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    return calls
+
+
+def _counting(monkeypatch, module, name):
+    """Patch ``module.name`` to count its calls; the list of calls."""
+    calls = []
+    real = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_phase_off_opens_nothing(fused, monkeypatch, tmp_path):
+    """With neither a profiler nor an ``obs`` span on, a forward opens no
+    range and no span, every phase is the one shared no-op object (false),
+    the padded width is not computed, and a phase call leaves nothing
+    allocated; with the profiler on, the same patched
+    ``record_function`` is called once a phase."""
+    import tracemalloc
+
+    from repro_torch.exec import fused as fused_mod
+    from repro_torch.kernels import flexvector_spmm as fv
+
+    calls = _counting_record_function(monkeypatch)
+    widths = (_counting(monkeypatch, fv, "aligned_width"),
+              _counting(monkeypatch, fused_mod, "_round_up"))
+    made = _counting(monkeypatch, T_TRACE, "Phase")
+    run, _ = _phase_case(fused)
+    run()
+    assert calls == [] and made == []
+    assert T_TRACE.current_span() is None
+    off = T_TRACE.phase("gcn.fold", rows=1)
+    assert off is T_TRACE.phase("gcn.permute") and not off
+    with T_TRACE.phase("gcn.fold") as ph:
+        ph.set(width=3)
+    assert T_TRACE.start_layer_span(TPlan(impl="cuda")) is None
+
+    def phases(n):
+        for _ in range(n):
+            with T_TRACE.phase("gcn.fold", sub_rows=1, out_rows=2, width=3):
+                pass
+
+    phases(100)
+    peaks = []
+    for n in (1_000, 20_000):
+        tracemalloc.start()
+        phases(n)
+        peaks.append(tracemalloc.get_traced_memory()[1])
+        tracemalloc.stop()
+    assert peaks[1] <= peaks[0] + 256 and peaks[1] < 4096
+    assert made == []
+
+    # The padded width is computed once a layer only when a phase is open.
+    n_off = sum(map(len, widths))
+    trace = TO.Tracer(clock=TR.VirtualClock()).trace("on")
+    with TO.use_span(trace.root):
+        run()
+    assert sum(map(len, widths)) == 2 * n_off + 2
+    n_phases = 12 if not fused else 10
+    assert len(made) == n_phases and calls == []
+    assert _profiled_phases(run, tmp_path) == _forward_tree(fused)
+    assert len(calls) == n_phases and len(made) == 2 * n_phases
+
+
+def test_phase_opens_nothing_in_a_capture(monkeypatch, tmp_path):
+    """A call made while a CUDA graph capture is underway opens no range
+    and no span, even with the profiler and an ``obs`` span on."""
+    calls = _counting_record_function(monkeypatch)
+    monkeypatch.setattr(T_TRACE, "_capturing", lambda: True)
+    run, _ = _phase_case(True)
+    trace = TO.Tracer(clock=TR.VirtualClock()).trace("capture")
+    with TO.use_span(trace.root):
+        assert _profiled_phases(run, tmp_path) == []
+    assert calls == []
+    assert [s.name for s in trace.spans] == ["capture"]
+
+
+def test_registry_setup_phases_and_stats(tmp_path):
+    """A build then a disk hit: the hash, build and store, then the hash,
+    file read and unpickling, timed apart in ``RegistryStats``, adding up to
+    no more than the interval around ``get_or_build``; set-up opens no
+    span (its steps are the stats)."""
+    import os
+    import time
+
+    from repro_torch.graphs.datasets import (DatasetSpec, gcn_normalize,
+                                             synthesize_adjacency)
+    from repro_torch.serve import cache as disk_cache
+    from repro_torch.serve.registry import ArtifactRegistry, graph_key
+
+    adj = gcn_normalize(synthesize_adjacency(DatasetSpec("x", 300, 1500, 8),
+                                             seed=2))
+    cfg = TConfig(in_dim=8, hidden_dim=8, out_dim=3, tau=4, tile_rows=16,
+                  block_rows=16)
+    first = ArtifactRegistry(cache_dir=str(tmp_path))
+    first.get_or_build(adj, cfg)
+    st = first.stats
+    assert (st.builds, st.disk_hits, st.read_bytes) == (1, 0, 0)
+    assert st.hash_s > 0 and st.build_s > 0 and st.store_s > 0
+    assert st.read_s == st.unpickle_s == 0.0
+
+    again = ArtifactRegistry(cache_dir=str(tmp_path))
+    trace = TO.Tracer(clock=TR.RealClock()).trace("load")
+    t0 = time.perf_counter()
+    with TO.use_span(trace.root):
+        again.get_or_build(adj, cfg)
+    interval = time.perf_counter() - t0
+    st = again.stats
+    assert (st.builds, st.disk_hits) == (0, 1)
+    path = disk_cache.cache_path(graph_key(adj, cfg), again.disk_dir)
+    assert st.read_bytes == os.path.getsize(path)
+    assert st.hash_s > 0 and st.read_s > 0 and st.unpickle_s > 0
+    assert st.hash_s + st.read_s + st.unpickle_s <= interval
+    assert st.build_s == st.store_s == 0.0
+    assert [s.name for s in trace.spans] == ["load"]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_second_forward_builds_nothing(fused):
+    """The operand's memo keeps what the first forward built and its
+    seconds; a second forward builds nothing more."""
+    run, graph = _phase_case(fused)
+    run()
+    operands = graph.on_device(torch.device("cpu"))[0]
+    builds = operands.memo_builds
+    assert builds and all(s >= 0 for s in builds.values())
+    if fused:
+        assert any(k[0] == "column_slots" for k in builds)
+    run()
+    assert operands.memo_builds == builds
